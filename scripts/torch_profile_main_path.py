@@ -3,24 +3,28 @@
 
 Run from the repository root on a machine with a card and ``nvcc``:
 
-    python3 scripts/torch_profile_main_path.py
+    python3 scripts/torch_profile_main_path.py [--fused-eval]
 
-Same workload as ``chip_smoke.py`` (bench config-1, N = 3368, 3 groups).
-Prints, after a warm-up:
+Same workload as ``chip_smoke.py`` (bench config-1, N = 3368, 3 groups);
+``--fused-eval`` extracts with the same weights and ``fused_eval=True``
+(path 2 of ``chip_smoke.py``: the 12 identity bottlenecks of each batch run
+the CUDA bottleneck kernel). Prints, after a warm-up:
 
 * device time of each stage of ``cluster_groups`` per group (CUDA events,
   median of 5): distance, re-rank encoding (top-k, masks, 0/1 products,
   query expansion), the L1 Jaccard, eps, DBSCAN;
 * host time of ``extract_features`` and of ``cluster_groups``;
 * a ``torch.profiler`` window over one extract + ``cluster_groups``: the
-  kernels with the most device time, and the device's busy and idle share
-  of the window.
+  kernels with the most device time, the device's busy and idle share of
+  the window, and the copy kernels in it (a layout change around the fused
+  blocks would show there).
 
 Then one JSON line with these numbers and the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -34,7 +38,8 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from chip_smoke import ANALYTICS, K1, K2, LAMBDA, MIN_SAMPLES, RHO, main_path_inputs  # noqa: E402
+from chip_smoke import (ANALYTICS, K1, K2, LAMBDA, MIN_SAMPLES, RHO,  # noqa: E402
+                        main_path_inputs, path_model)
 from ssg_tpu_torch import api, resolve_device  # noqa: E402
 from ssg_tpu_torch.cluster import dbscan, select_eps  # noqa: E402
 from ssg_tpu_torch.ops.distance import pairwise_distance  # noqa: E402
@@ -57,6 +62,10 @@ def device_ms(fn, reps: int = 5):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--fused-eval", action="store_true",
+                        help="extract with fused_eval=True (the CUDA bottleneck kernel)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
@@ -65,6 +74,8 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     dev = resolve_device()
     batches, model = main_path_inputs(dev)
+    if args.fused_eval:
+        model = path_model(dev, fused_eval=True)
     feats, _, _ = api.extract_features(model, batches)
     api.cluster_groups(feats, **ANALYTICS)
     torch.cuda.synchronize()
@@ -115,6 +126,11 @@ def main() -> int:
         ms = e.self_device_time_total / 1e3
         print(f"  {ms:9.3f} ms  x{e.count:<5} {e.key[:100]}")
         top.append({"kernel": e.key[:100], "ms": ms, "count": e.count})
+    copies = [e for e in kernels if "copy" in e.key.lower() or "memcpy" in e.key.lower()]
+    copy_ms = sum(e.self_device_time_total for e in copies) / 1e3
+    print(f"copy kernels: {sum(e.count for e in copies)} launches, {copy_ms:.3f} ms")
+    for e in copies[:5]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} {e.key[:100]}")
 
     print(json.dumps({
         "stages_ms": {k: v for k, v in stages.items()},
@@ -124,6 +140,8 @@ def main() -> int:
         "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / (window_s * 1e3),
         "top_kernels": top,
+        "copy_kernels": {"launches": sum(e.count for e in copies), "ms": copy_ms},
+        "fused_eval": args.fused_eval,
         "card": smi,
     }))
     return 0

@@ -59,20 +59,22 @@ def cluster(dist, eps: float | None = None, min_samples: int = 4,
 
 def cluster_groups(feats, k1: int = 20, k2: int = 6, lambda_value: float = 0.1,
                    rho: float = 1.6e-3, min_samples: int = 4, l1_impl: str = "auto",
-                   device=None):
+                   dist_impl: str = "auto", device=None):
     """The SSG per-iteration analytics block for every feature group.
 
     Args:
       feats: (num_parts, N, F) embeddings (tensor or numpy).
       l1_impl: ``"auto"`` (the CUDA L1 kernel on the card) or ``"torch"``
         (its plain version; the reference the kernel path is held against).
+      dist_impl: ``"auto"`` (the cuBLAS distance) or ``"kernel"`` (the CUDA
+        distance kernel on the card), as ``ops.distance.pairwise_distance``.
 
     Returns (labels (num_parts, N) np.int32, n_clusters list, eps list).
     """
     f = torch.as_tensor(feats, device=resolve_device(device))
     labels, counts, epss = [], [], []
     for g in range(f.shape[0]):
-        original = pairwise_distance(f[g], squared=True)
+        original = pairwise_distance(f[g], squared=True, impl=dist_impl)
         dist = _re_ranking_impl(original, int(k1), int(k2), float(lambda_value), l1_impl)
         eps_g = select_eps(dist, rho=rho)
         labels_g, n_g = dbscan(dist, eps_g, min_samples=int(min_samples))

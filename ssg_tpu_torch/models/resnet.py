@@ -17,9 +17,16 @@ ways — whole map, upper half, lower half — each with its own head.
   ``downsample.0/1``, ``feat_whole``, ``feat_bn_whole``), so
   ``models/convert.py`` maps the JAX variables one to one.
 
+* ``fused_eval`` (off by default, as in JAX): in eval mode each identity
+  bottleneck (stride 1, ``cin == 4 * features``) folds its BatchNorms into
+  the conv weights and runs ``ops.bottleneck.fused_bottleneck`` (the CUDA
+  kernel on the card). Those blocks keep their conv weights in fp32, as
+  Flax keeps its parameters, and fold from them: folding a bf16-stored
+  weight would round twice. Other convs are stored in ``dtype``; train
+  mode casts the fp32 masters to ``dtype`` at each conv.
+
 The JAX package's space-to-depth stem is an exact TPU rewrite of the 7x7
-conv and is not ported; nor are its fused Pallas eval blocks (off by
-default there).
+conv and is not ported.
 """
 
 from __future__ import annotations
@@ -27,7 +34,10 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from ssg_tpu_torch.ops.bottleneck import fold_bn, fused_bottleneck
 
 PART_NAMES = ("whole", "up", "down")
 
@@ -41,9 +51,11 @@ class Bottleneck(nn.Module):
 
     expansion = 4
 
-    def __init__(self, cin: int, features: int, stride: int = 1):
+    def __init__(self, cin: int, features: int, stride: int = 1, fused_eval: bool = False):
         super().__init__()
         cout = features * self.expansion
+        self.fused_eval = fused_eval
+        self._fold_cache = None
         self.conv1 = _conv(cin, features, 1)
         self.bn1 = nn.BatchNorm2d(features, eps=1e-5)
         self.conv2 = _conv(features, features, 3, stride)
@@ -56,16 +68,51 @@ class Bottleneck(nn.Module):
             self.downsample = nn.Sequential(_conv(cin, cout, 1, stride),
                                             nn.BatchNorm2d(cout, eps=1e-5))
 
+    @torch.no_grad()
+    def folded(self, dtype: torch.dtype) -> tuple:
+        """The block with its BNs folded (``fold_bn``, fp32), in the JAX
+        layout ``ops.bottleneck`` takes: ``(w1, b1, w2, b2, w3, b3)``, plus
+        ``(wd, bd)`` for a downsample block. Weights are cast to ``dtype``
+        and contiguous, biases fp32. Cached until a source tensor is
+        replaced or changed in place (its ``_version``)."""
+        pairs = [(self.conv1, self.bn1), (self.conv2, self.bn2), (self.conv3, self.bn3)]
+        if self.downsample is not None:
+            pairs.append((self.downsample[0], self.downsample[1]))
+        srcs = [t for conv, bn in pairs
+                for t in (conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var)]
+        key = (dtype, *((t.data_ptr(), t._version) for t in srcs))
+        if self._fold_cache is None or self._fold_cache[0] != key:
+            out = []
+            for conv, bn in pairs:
+                w, b = fold_bn(conv.weight.permute(2, 3, 1, 0), bn.weight, bn.bias,
+                               bn.running_mean, bn.running_var, bn.eps)
+                w = w[0, 0] if conv.kernel_size == (1, 1) else w
+                out += [w.to(dtype).contiguous(), b.contiguous()]
+            self._fold_cache = (key, tuple(out))
+        return self._fold_cache[1]
+
+    @staticmethod
+    def _conv(conv: nn.Conv2d, x):
+        if conv.weight.dtype == x.dtype:
+            return conv(x)
+        return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding)
+
     def forward(self, x):
+        if self.fused_eval and not self.training and self.downsample is None:
+            # NCHW with channels-last strides is NHWC-contiguous once permuted:
+            # the kernel reads and writes it with no layout copy.
+            out = fused_bottleneck(x.permute(0, 2, 3, 1), *self.folded(x.dtype))
+            return out.permute(0, 3, 1, 2)
         residual = x if self.downsample is None else self.downsample(x)
-        y = self.relu(self.bn1(self.conv1(x)))
-        y = self.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+        y = self.relu(self.bn1(self._conv(self.conv1, x)))
+        y = self.relu(self.bn2(self._conv(self.conv2, y)))
+        y = self.bn3(self._conv(self.conv3, y))
         return self.relu(y + residual)
 
 
 class ResNetBackbone(nn.Module):
-    def __init__(self, stage_sizes: Sequence[int], last_stride: int = 2):
+    def __init__(self, stage_sizes: Sequence[int], last_stride: int = 2,
+                 fused_eval: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
         self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
@@ -77,7 +124,8 @@ class ResNetBackbone(nn.Module):
                 last_stride if stage == len(stage_sizes) - 1 else 2)
             blocks = []
             for blk in range(num_blocks):
-                blocks.append(Bottleneck(cin, 64 * 2**stage, stride if blk == 0 else 1))
+                blocks.append(Bottleneck(cin, 64 * 2**stage, stride if blk == 0 else 1,
+                                         fused_eval))
                 cin = 64 * 2**stage * Bottleneck.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
         self.num_stages = len(stage_sizes)
@@ -101,9 +149,9 @@ class SSGResNet(nn.Module):
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), num_features: int = 0,
                  num_parts: int = 3, norm: bool = True, last_stride: int = 2,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fused_eval: bool = False):
         super().__init__()
-        self.backbone = ResNetBackbone(stage_sizes, last_stride)
+        self.backbone = ResNetBackbone(stage_sizes, last_stride, fused_eval)
         self.num_parts = num_parts
         self.norm = norm
         self.dtype = dtype
@@ -114,9 +162,14 @@ class SSGResNet(nn.Module):
             self.add_module(f"feat_bn_{part}",
                             nn.BatchNorm1d(num_features or width, eps=1e-5))
         self.num_features = num_features
-        # Convolution weights carry the compute type; BN and heads stay fp32.
+        # Convolution weights carry the compute type; BN and heads stay fp32,
+        # and so do the fp32 masters of the blocks that fused_eval folds.
+        masters = set()
+        for blk in self.backbone.modules():
+            if isinstance(blk, Bottleneck) and blk.fused_eval and blk.downsample is None:
+                masters.update((blk.conv1, blk.conv2, blk.conv3))
         for m in self.backbone.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, nn.Conv2d) and m not in masters:
                 m.to(dtype)
 
     @torch.no_grad()

@@ -11,8 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from ssg_tpu_torch import api, resolve_device
+from ssg_tpu_torch import api, models, resolve_device
+from ssg_tpu_torch.ops import bottleneck as bn_mod
+from ssg_tpu_torch.ops import bottleneck_stage as stage_mod
+from ssg_tpu_torch.ops import distance as dist_mod
 from ssg_tpu_torch.ops import l1 as l1_mod
+from ssg_tpu_torch.ops.bottleneck import bf16_ulp_error, bottleneck_ref, fused_bottleneck
+from ssg_tpu_torch.ops.bottleneck_stage import fused_bottleneck_stage, stage_ref
+from ssg_tpu_torch.ops.distance import pairwise_distance, pairwise_distance_ref
 from ssg_tpu_torch.ops.l1 import l1_distance, l1_distance_ref
 
 pytestmark = pytest.mark.cuda
@@ -69,3 +75,125 @@ def test_cluster_groups_card_matches_cpu(gen, cuda):
     np.testing.assert_array_equal(lg, lc)
     assert ng == nc
     np.testing.assert_allclose(eg, ec, rtol=1e-5)
+
+
+# bf16 kernel against the plain version: y1, y2 and the output are rounded
+# to bf16 on both sides, and fp32 sums in another order may flip one of those
+# roundings, so the bound is in output ulps (bn_mod.bf16_ulp_error), per
+# block of a stage, since each block passes its input's differences on.
+BF16_ULPS = 4
+
+
+def _weights(gen, cin, cm, cout, ds, device):
+    shapes = [(cin, cm), (cm,), (3, 3, cm, cm), (cm,), (cm, cout), (cout,)]
+    fans = [cin, 1, 9 * cm, 1, cm, 1]
+    if ds:
+        shapes += [(cin, cout), (cout,)]
+        fans += [cin, 1]
+    out = []
+    for shape, fan in zip(shapes, fans):
+        a = torch.from_numpy(gen.normal(size=shape).astype(np.float32) * (0.1 if fan == 1 else fan ** -0.5))
+        out.append(a.to(device, torch.bfloat16 if len(shape) > 1 else torch.float32))
+    return tuple(out)
+
+
+def _act(gen, shape, device):
+    return torch.from_numpy(np.abs(gen.normal(size=shape)).astype(np.float32)).to(device, torch.bfloat16)
+
+
+# Ragged spatial and channel sizes ((2, 1) map, Cm 8, odd W, C 40), then the
+# four ResNet-50 identity-block widths.
+@pytest.mark.parametrize("b,h,w,c,cm", [(2, 2, 1, 64, 16), (3, 5, 7, 32, 8), (2, 9, 13, 40, 8),
+                                        (4, 8, 6, 64, 16), (2, 64, 32, 256, 64),
+                                        (2, 32, 16, 512, 128), (2, 16, 8, 1024, 256),
+                                        (3, 8, 4, 2048, 512)])
+def test_bottleneck_kernel_matches_ref(gen, cuda, b, h, w, c, cm):
+    x = _act(gen, (b, h, w, c), cuda)
+    ws = _weights(gen, c, cm, c, False, cuda)
+    before = bn_mod.launches
+    out = fused_bottleneck(x, *ws)
+    torch.cuda.synchronize()
+    assert bn_mod.launches == before + 1
+    ref = bottleneck_ref(x, *ws)
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out.float()).all())
+    assert bf16_ulp_error(out, ref) <= BF16_ULPS
+
+
+@pytest.mark.parametrize("stride,h,w,c,cm", [(1, 16, 8, 16, 8), (2, 16, 8, 16, 8),
+                                             (2, 9, 7, 24, 8), (1, 64, 32, 64, 64),
+                                             (2, 64, 32, 256, 128), (2, 16, 8, 1024, 512)])
+def test_stage_kernel_matches_ref(gen, cuda, stride, h, w, c, cm):
+    x = _act(gen, (2, h, w, c), cuda)
+    blocks = (_weights(gen, c, cm, 4 * cm, True, cuda),
+              _weights(gen, 4 * cm, cm, 4 * cm, False, cuda),
+              _weights(gen, 4 * cm, cm, 4 * cm, False, cuda))
+    before = stage_mod.launches
+    out = fused_bottleneck_stage(x, blocks, stride)
+    torch.cuda.synchronize()
+    assert stage_mod.launches == before + 3
+    ref = stage_ref(x, blocks, stride)
+    assert out.shape == ref.shape == (2, (h - 1) // stride + 1, (w - 1) // stride + 1, 4 * cm)
+    assert bf16_ulp_error(out, ref) <= BF16_ULPS * len(blocks)
+
+
+def test_bottleneck_kernel_rejects_bad_input(gen, cuda):
+    x = _act(gen, (2, 4, 4, 64), cuda)
+    ws = _weights(gen, 64, 16, 64, False, cuda)
+    with pytest.raises(ValueError):
+        fused_bottleneck(x.float(), *ws)  # fp32 activations
+    with pytest.raises(ValueError):
+        fused_bottleneck(x.permute(0, 2, 1, 3), *ws)  # not NHWC-contiguous
+    with pytest.raises(ValueError):
+        fused_bottleneck(x, ws[0][:, :12].contiguous(), ws[1][:12], *ws[2:])  # Cm not 8k
+    with pytest.raises(ValueError):
+        fused_bottleneck(x, ws[0].T, *ws[1:])  # w1 transposed
+    with pytest.raises(ValueError):
+        fused_bottleneck_stage(x, (ws, _weights(gen, 64, 16, 64, True, cuda)), 1)
+
+
+@pytest.mark.parametrize("m,n,d,squared", [(70, 33, 150, True), (5, 7, 3, False),
+                                           (129, 257, 65, True), (1, 1, 1, False),
+                                           (1000, 333, 2048, True)])
+def test_distance_kernel_matches_ref(gen, cuda, m, n, d, squared):
+    x = torch.from_numpy(gen.normal(size=(m, d)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(gen.normal(size=(n, d)).astype(np.float32)).to(cuda)
+    before = dist_mod.launches
+    out = pairwise_distance(x, y, squared=squared, impl="kernel")
+    torch.cuda.synchronize()
+    assert dist_mod.launches == before + 1
+    ref = pairwise_distance_ref(x, y, squared=squared)
+    # fp32 sums in another order: 1e-5 of the |x|^2 + |y|^2 scale (its
+    # square root for plain distances).
+    scale = float((x * x).sum(1).max() + (y * y).sum(1).max())
+    assert float((out - ref).abs().max()) <= 1e-5 * (scale if squared else scale ** 0.5)
+
+
+def test_distance_kernel_rejects_bad_input(cuda):
+    x = torch.ones((8, 4), device=cuda)
+    with pytest.raises(ValueError):
+        pairwise_distance(x.T, impl="kernel")
+    with pytest.raises(ValueError):
+        pairwise_distance(x.double(), impl="kernel")
+    with pytest.raises(ValueError):
+        pairwise_distance(x, torch.ones((8, 5), device=cuda), impl="kernel")
+    with pytest.raises(ValueError):
+        pairwise_distance(x, impl="pallas")
+
+
+def test_fused_eval_model_matches_unfused(cuda):
+    kw = dict(num_features=0, num_parts=3, dtype=torch.bfloat16)
+    plain = models.create("resnet50", **kw).reset_parameters(torch.Generator().manual_seed(0))
+    fused = models.create("resnet50", fused_eval=True, **kw)
+    fused.load_state_dict(plain.state_dict())
+    plain = plain.eval().to(cuda, memory_format=torch.channels_last)
+    fused = fused.eval().to(cuda, memory_format=torch.channels_last)
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(4, 256, 128, 3)).astype(np.float32))
+    before = bn_mod.launches
+    with torch.no_grad():
+        a = plain(x.to(cuda))
+        b = fused(x.to(cuda))
+    torch.cuda.synchronize()
+    assert bn_mod.launches == before + 12  # the 12 identity blocks of ResNet-50
+    cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+    assert float(cos.min()) >= 0.99

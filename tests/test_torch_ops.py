@@ -13,12 +13,14 @@ import jax.numpy as jnp
 from ssg_tpu.cluster import dbscan as jax_dbscan
 from ssg_tpu.cluster import select_eps as jax_select_eps
 from ssg_tpu.ops.distance import pairwise_distance as jax_pairwise
+from ssg_tpu.ops.distance import _pairwise_pallas
 from ssg_tpu.ops.l1 import _l1_pallas, _l1_xla
 from ssg_tpu.ops.rerank import re_ranking as jax_re_ranking
 from ssg_tpu.ops.topk import exact_min_k as jax_min_k
 from ssg_tpu.oracle import dbscan_np, pairwise_distance_np, re_ranking_np, select_eps_np
 
 from ssg_tpu_torch.cluster import dbscan, select_eps
+from ssg_tpu_torch.ops import distance as dist_mod
 from ssg_tpu_torch.ops import l1 as l1_mod
 from ssg_tpu_torch.ops.distance import pairwise_distance
 from ssg_tpu_torch.ops.l1 import l1_distance, l1_distance_ref
@@ -74,6 +76,38 @@ def test_pairwise_distance(rng, squared):
     np.testing.assert_allclose(sym[off], pairwise_distance_np(x, squared=squared)[off],
                                rtol=1e-5, atol=1e-4)
     assert np.abs(np.diag(sym)).max() <= 1e-2
+
+
+# Ragged against every tile size of both sides (CUDA 128x128x16, Pallas 256).
+@pytest.mark.parametrize("m,n,d", [(57, 33, 40), (5, 7, 3), (129, 257, 65), (1, 1, 1)])
+@pytest.mark.parametrize("squared", [True, False])
+def test_pairwise_distance_kernel_impl(rng, m, n, d, squared):
+    x = rng.normal(size=(m, d)).astype(np.float32)
+    y = rng.normal(size=(n, d)).astype(np.float32)
+    before = dist_mod.launches
+    ours = pairwise_distance(torch.from_numpy(x), torch.from_numpy(y), squared=squared,
+                             impl="kernel").numpy()
+    assert dist_mod.launches == before  # CPU tensors take the plain version
+    # jax's impl="pallas" runs the Pallas kernel interpreted off the TPU.
+    ref = np.asarray(jax_pairwise(jnp.asarray(x), jnp.asarray(y), squared=squared,
+                                  impl="pallas"))
+    kern = np.asarray(_pairwise_pallas(jnp.asarray(x), jnp.asarray(y), squared,
+                                       interpret=True))
+    assert ours.shape == ref.shape == (m, n) and ours.dtype == np.float32
+    # fp32 sums in another order, relative to the |x|^2 + |y|^2 scale (its
+    # square root for plain distances: sqrt magnifies near-0 residues).
+    scale = float((x * x).sum(1).max() + (y * y).sum(1).max())
+    atol = 1e-6 * scale if squared else 1e-3 * scale ** 0.5
+    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(ours, kern, rtol=1e-5, atol=atol)
+
+
+def test_pairwise_distance_unknown_impl():
+    x = torch.ones((3, 2))
+    with pytest.raises(ValueError):
+        pairwise_distance(x, impl="pallas")
+    with pytest.raises(ValueError):
+        pairwise_distance(x, impl="xla")
 
 
 def test_exact_min_k_values_and_tie_free_indices(rng):
