@@ -20,7 +20,7 @@ ways — whole map, upper half, lower half — each with its own head.
 * ``fused_eval`` (off by default, as in JAX): in eval mode each identity
   bottleneck (stride 1, ``cin == 4 * features``) folds its BatchNorms into
   the conv weights and runs ``ops.bottleneck.fused_bottleneck`` (the CUDA
-  kernel on the card). Those blocks keep their conv weights in fp32, as
+  kernel on the card in bf16; its plain version in fp32). Those blocks keep their conv weights in fp32, as
   Flax keeps its parameters, and fold from them: folding a bf16-stored
   weight would round twice. Other convs are stored in ``dtype``; train
   mode casts the fp32 masters to ``dtype`` at each conv.

@@ -8,9 +8,11 @@ activations of type ``x.dtype`` with fp32 accumulation:
     y2  = relu(conv3x3(y1, w2) + b2)   -> x.dtype
     out = relu(y2 @ w3 + b3 + x)       -> x.dtype
 
-On the card it is the hand-written CUDA kernel ``csrc/bottleneck.cu``, which
-keeps y1 and y2 in shared memory. ``bottleneck_ref`` is its plain PyTorch
-version: the CPU runs it, and the kernel is held against it on the card.
+On the card a bf16 block is the hand-written CUDA kernel
+``csrc/bottleneck.cu``, which keeps y1 and y2 in shared memory and shares
+each weight chunk across a thread-block cluster. ``bottleneck_ref`` is its
+plain PyTorch version: the CPU runs it, an fp32 block runs it on any device,
+and the kernel is held against it on the card.
 Public layouts are the JAX package's: NHWC ``x``, w1 ``(C, Cm)``, w2
 ``(3, 3, Cm, Cm)`` (HWIO), w3 ``(Cm, C)``, fp32 biases.
 """
@@ -38,8 +40,10 @@ def _lib_fn(name: str):
         fn = getattr(_build.load("bottleneck"), name)
         if name == "ssg_bottleneck":
             fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
-        else:
+        elif name == "ssg_bottleneck_plan":
             fn.argtypes = [ctypes.c_int64] * 6 + [ctypes.c_void_p]
+        else:
+            fn.argtypes = [ctypes.c_int64]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -153,13 +157,28 @@ def launch_block(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, stride: int = 1) -
     return out
 
 
+PLAN_FIELDS = ("tile_rows", "tile_cols", "blocks", "smem_bytes", "ring_slots", "cluster", "grid",
+               "max_active_clusters")
+
+
 def plan(b: int, h: int, w: int, cm: int, stride: int = 1, downsample: bool = False) -> dict:
-    """The kernel's output tile, grid and shared memory for an input shape."""
-    out = (ctypes.c_int64 * 5)()
+    """The kernel's launch on the current card for an input shape: output
+    tile, blocks that own pixels, shared memory, ring slots, cluster size
+    (blocks sharing each weight chunk), grid (padded to a multiple of the
+    cluster size) and the clusters of that size the card holds at once."""
+    out = (ctypes.c_int64 * len(PLAN_FIELDS))()
     err = _lib_fn("ssg_bottleneck_plan")(b, h, w, cm, stride, int(downsample), out)
     if err != 0:
-        raise ValueError(f"fused_bottleneck: no tile fits Cm={cm} (CUDA error {err})")
-    return dict(zip(("tile_rows", "tile_cols", "blocks", "smem_bytes", "ring_slots"), out))
+        raise ValueError(f"fused_bottleneck: no launch fits Cm={cm} (CUDA error {err})")
+    return dict(zip(PLAN_FIELDS, out))
+
+
+def set_max_cluster(n: int) -> int:
+    """Cap the kernel's cluster size at ``n`` (1, 2 or 4) for later launches;
+    returns the old cap. The plan seldom picks 1 on an H100, so this is how
+    tests reach the unclustered path and ``chip_smoke.py`` times shared weight
+    chunks against unshared ones in one run."""
+    return _lib_fn("ssg_bottleneck_max_cluster")(n)
 
 
 def bf16_ulp_error(out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -182,12 +201,14 @@ def fused_bottleneck(x, w1, b1, w2, b2, w3, b3):
     """Identity bottleneck with BN pre-folded into (w, b) pairs.
 
     x: (B, H, W, C) NHWC; w1 (C, Cm), w2 (3, 3, Cm, Cm), w3 (Cm, C); b*: fp32.
-    Returns (B, H, W, C) in ``x.dtype``. CUDA tensors launch the kernel
-    (bf16, NHWC-contiguous, channels multiples of 8, else it raises); CPU
-    tensors take the plain version.
+    Returns (B, H, W, C) in ``x.dtype``. The rule goes by device and dtype:
+    CPU tensors, and fp32 tensors on any device, take the plain version in
+    true fp32 (as the JAX op computes an fp32 block off the TPU through its
+    reference); that is not a launch. Any other CUDA tensor launches the
+    kernel (bf16, NHWC-contiguous, channels multiples of 8, else it raises).
     """
     global launches
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" or x.dtype == torch.float32:
         return bottleneck_ref(x, w1, b1, w2, b2, w3, b3)
     out = launch_block(x, w1, b1, w2, b2, w3, b3)
     launches += 1

@@ -35,11 +35,13 @@ def fused_bottleneck_stage(x: torch.Tensor, blocks, stride: int = 1) -> torch.Te
     downsample block (first only) and ``(w1, b1, w2, b2, w3, b3)`` for an
     identity block, BN folded; w1/w3/wd as ``(Cin, Cout)``, w2 as
     ``(3, 3, Cm, Cm)``. ``stride`` applies to a downsample first block.
-    CUDA tensors launch the kernel once per block; CPU tensors take the
-    plain version.
+    The rule goes by device and dtype: CPU tensors, and fp32 tensors on any
+    device, take the plain version in true fp32 (as the JAX op does off the
+    TPU), with no launch counted; any other CUDA tensor launches the kernel
+    once per block.
     """
     global launches
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" or x.dtype == torch.float32:
         return stage_ref(x, blocks, stride)
     for i, blk in enumerate(blocks):
         if len(blk) == 8:

@@ -10,8 +10,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "ssg_tpu")
-SOURCES = sorted((ROOT / "ssg_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile_main_path.py"]
+SOURCES = sorted((ROOT / "ssg_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "scripts").glob("torch_*.py"))
 
 
 def _imported_roots(path: Path) -> set[str]:
