@@ -24,10 +24,8 @@ It checks them:
    source, all started together);
 2. holds each kernel against its plain PyTorch version on the card at
    ragged shapes and at the path shapes (the bottleneck on activations
-   captured from the path model, with its folded weights), the bottleneck
-   both with its weight chunks shared across clusters and with its cluster
-   size capped at 1, and prints each bottleneck launch's plan (tile, cluster
-   size, padded grid, clusters the card holds at once);
+   captured from the path model, with its folded weights; its fp32 kernel
+   on random fp32 blocks, against the plain version in true fp32);
 3. runs each path once as warm-up and once timed, with the kernels' launch
    counts set to 0 just before and read just after;
 4. checks the outputs (shapes, finiteness, unit-norm embeddings, label
@@ -35,9 +33,8 @@ It checks them:
    against the plain L1 on the card; path 2's embeddings against path 1's
    and its labels against path 1's);
 5. times each kernel, its plain version and the nearest PyTorch library
-   form, at the path shapes, beside the least time the card could take (the
-   bottleneck also with its cluster size capped at 1, and beside the times
-   of its cp.async version).
+   form, at the path shapes, beside the least time the card could take
+   (the bottleneck also beside its times in PERF.md).
 
 Any failed check ends the run with a nonzero exit. The last three lines are
 the kernels' JSON, the card's name and power limit from ``nvidia-smi``, and
@@ -75,6 +72,7 @@ DIST_TOL = 1e-5  # of the |x|^2 + |y|^2 scale: fp32 sums in another order
 # max(|ref|, rms(ref)) (bottleneck.bf16_ulp_error), per block of a run, since
 # each block passes its input's differences on through the residual.
 BF16_ULPS = 4
+FP32_REL = 1e-4  # fp32 blocks against the plain version: of max |ref|, sums in another order
 COSINE_MIN = 0.99  # fused-eval embeddings against the unfused path's, per row
 # H100 SXM (NVIDIA data sheet): 3.35 TB/s; fp32 67 TFLOP/s counts an FMA as
 # two operations, so plain fp32 adds and subtracts (the L1 has no FMA form)
@@ -86,12 +84,14 @@ FP32_FMA_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 # ResNet-50 stages: (name, blocks, stride of the first block).
 STAGES = (("layer1", 3, 1), ("layer2", 4, 2), ("layer3", 6, 2), ("layer4", 3, 2))
-# The bottleneck kernel's times at the path shapes in its cp.async version,
-# before its weight chunks came by bulk copies shared across clusters
-# (PERF.md; H100 80GB HBM3, 700 W): one identity block per layer, and per
-# batch the 12 identity blocks and the four stages.
-CPASYNC_BLOCK_MS = {"layer1": 0.623, "layer2": 0.413, "layer3": 0.376, "layer4": 0.667}
-CPASYNC_BATCH_MS = {"fused_bottleneck": 5.701, "fused_bottleneck_stage": 10.217}
+# Identity blocks at the path shapes (batch 128): (name, H, W, C, Cm, blocks a batch).
+IDENTITY = (("layer1", 64, 32, 256, 64, 2), ("layer2", 32, 16, 512, 128, 3),
+            ("layer3", 16, 8, 1024, 256, 5), ("layer4", 8, 4, 2048, 512, 2))
+# The bottleneck kernel's times at the path shapes in PERF.md (H100 80GB
+# HBM3, 700 W, PR 2): one identity block a layer; a batch's 12 identity
+# blocks and four stages.
+PR2_BLOCK_MS = {"layer1": 0.623, "layer2": 0.413, "layer3": 0.376, "layer4": 0.667}
+PR2_BATCH_MS = {"fused_bottleneck": 5.701, "fused_bottleneck_stage": 10.217}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -222,16 +222,6 @@ def random_block(gen: torch.Generator, cin: int, cm: int, cout: int, ds: bool, d
     return tuple(out)
 
 
-def unshared(fn):
-    """``fn()`` with the bottleneck kernel's cluster size capped at 1: every
-    block fetches its own weight chunks."""
-    prev = bottleneck.set_max_cluster(1)
-    try:
-        return fn()
-    finally:
-        bottleneck.set_max_cluster(prev)
-
-
 def check_kernels_ragged(dev: torch.device) -> None:
     """The bottleneck, stage and distance kernels against their plain
     versions at shapes ragged against their tiles."""
@@ -240,20 +230,15 @@ def check_kernels_ragged(dev: torch.device) -> None:
     def act(shape):
         return torch.randn(shape, generator=gen, device=dev).abs().to(torch.bfloat16)
 
-    # The last four pad the grid with blocks that own no pixels (a grid not
-    # a multiple of the cluster size) and have K rows straddling a k16 step.
+    # The last four: grids of 1-3 blocks at the layer3-4 widths, and K = C,
+    # 9 Cm and Cm straddling a 16-deep step of the products.
     for (b, h, w, c, cm) in [(2, 2, 1, 64, 16), (3, 5, 7, 32, 8), (2, 9, 13, 40, 8),
                              (1, 70, 3, 64, 16), (3, 9, 13, 40, 8), (1, 9, 7, 1024, 256),
                              (3, 9, 7, 1024, 256), (1, 8, 4, 2048, 512)]:
         x, blk = act((b, h, w, c)), random_block(gen, c, cm, c, False, dev)
-        ref = bottleneck_ref(x, *blk)
-        err = bf16_ulp_error(fused_bottleneck(x, *blk), ref)
-        err1 = bf16_ulp_error(unshared(lambda: fused_bottleneck(x, *blk)), ref)
-        launch = bottleneck.plan(b, h, w, cm)
-        print(f"bottleneck ragged ({b},{h},{w},{c})/Cm {cm}: {err:.0f} ulps (cluster 1: "
-              f"{err1:.0f}); cluster {launch['cluster']}, grid {launch['grid']} for "
-              f"{launch['blocks']} blocks")
-        check(max(err, err1) <= BF16_ULPS, f"bottleneck kernel disagrees at ({b},{h},{w},{c})/{cm}")
+        err = bf16_ulp_error(fused_bottleneck(x, *blk), bottleneck_ref(x, *blk))
+        print(f"bottleneck ragged ({b},{h},{w},{c})/Cm {cm}: {err:.0f} ulps")
+        check(err <= BF16_ULPS, f"bottleneck kernel disagrees at ({b},{h},{w},{c})/{cm}")
     for (stride, h, w, c, cm) in [(2, 9, 7, 24, 8), (1, 16, 8, 16, 8), (2, 33, 17, 64, 16)]:
         x = act((2, h, w, c))
         blocks = (random_block(gen, c, cm, 4 * cm, True, dev),
@@ -273,6 +258,51 @@ def check_kernels_ragged(dev: torch.device) -> None:
         check(rel <= DIST_TOL, f"distance kernel disagrees at ({m},{n},{d})")
 
 
+def check_fp32_blocks(dev: torch.device) -> None:
+    """The bottleneck's fp32 kernel (``ssg_bottleneck_f32``) against the plain
+    version in true fp32 at ragged shapes and in a downsample stage, then on
+    one random identity block at each path width, timed beside the plain
+    version and the fp32 FMA bound."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def f32(blk):
+        return tuple(t.float() for t in blk)
+
+    def rel(out, ref):
+        check(out.dtype == torch.float32 and bool(torch.isfinite(out).all()), "fp32 output bad")
+        return float((out - ref).abs().max()) / float(ref.abs().max())
+
+    for (b, h, w, c, cm) in [(3, 5, 7, 32, 8), (2, 9, 13, 40, 8)]:
+        x = torch.randn((b, h, w, c), generator=gen, device=dev).abs()
+        blk = f32(random_block(gen, c, cm, c, False, dev))
+        err = rel(fused_bottleneck(x, *blk), bottleneck_ref(x, *blk))
+        print(f"fp32 bottleneck ragged ({b},{h},{w},{c})/Cm {cm}: rel {err:.2e}")
+        check(err <= FP32_REL, f"fp32 bottleneck kernel disagrees at ({b},{h},{w},{c})/{cm}")
+    x = torch.randn((2, 9, 7, 24), generator=gen, device=dev).abs()
+    blocks = (f32(random_block(gen, 24, 8, 32, True, dev)),
+              f32(random_block(gen, 32, 8, 32, False, dev)))
+    err = rel(fused_bottleneck_stage(x, blocks, 2), stage_ref(x, blocks, 2))
+    print(f"fp32 stage ragged (2,9,7,24)/Cm 8 stride 2: rel {err:.2e}")
+    check(err <= FP32_REL, "fp32 stage disagrees at (2,9,7,24)/8 s2")
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for name, h, w, c, cm, count in IDENTITY:
+        x = torch.randn((BATCH, h, w, c), generator=gen, device=dev).abs()
+        blk = f32(random_block(gen, c, cm, c, False, dev))
+        err = rel(fused_bottleneck(x, *blk), bottleneck_ref(x, *blk))
+        check(err <= FP32_REL, f"fp32 {name} identity block disagrees: rel {err:.2e}")
+        r = dict(ms=cuda_ms(lambda: fused_bottleneck(x, *blk), 5),
+                 plain_ms=cuda_ms(lambda: bottleneck_ref(x, *blk), 5),
+                 bound_ms=block_work(tuple(x.shape), blk, 1)[0] / FP32_FMA_FLOP_PER_S * 1e3)
+        print(f"fp32 {name} identity block {tuple(x.shape)}: rel {err:.2e}, kernel "
+              f"{r['ms']:.3f} ms, plain (true fp32) {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.3f} ms (operations, fp32 FMA)")
+        for k in total:
+            total[k] += count * r[k]
+    print(f"fp32 fused_bottleneck per batch (12 identity blocks): kernel {total['ms']:.3f} ms, "
+          f"plain {total['plain_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms, "
+          f"{total['bound_ms'] / total['ms']:.1%} of bound")
+
+
 def capture_stage_inputs(model, batch) -> dict:
     """NHWC inputs of every stage's first and second block, from one batch
     of ``model`` (forward pre-hooks)."""
@@ -290,38 +320,32 @@ def capture_stage_inputs(model, batch) -> dict:
 
 
 def time_blocks(name: str, x, blocks, stride: int, kernel_fn, plain_fn, counter,
-                cpasync_ms: float | None = None) -> dict:
-    """Check a run of folded blocks on ``x`` against its plain version, with
-    the weight chunks shared across clusters and without; then time the
-    kernel both ways, the plain version and the eager cuDNN form."""
+                pr2_ms: float | None = None) -> dict:
+    """Check a run of folded blocks on ``x`` against its plain version, then
+    time the kernel, the plain version and the eager cuDNN form."""
     out = kernel_fn()
-    out1 = unshared(kernel_fn)
     ref = plain_fn()
     library = eager_blocks(blocks, stride)
     torch.cuda.synchronize()
     check(out.shape == ref.shape and bool(torch.isfinite(out.float()).all()),
           f"{name}: kernel output bad")
     ulps = bf16_ulp_error(out, ref)
-    ulps1 = bf16_ulp_error(out1, ref)
     abs_err = float((out.float() - ref.float()).abs().max())
     check(ulps <= BF16_ULPS * len(blocks), f"{name}: kernel disagrees by {ulps:.0f} ulps")
-    check(ulps1 <= BF16_ULPS * len(blocks),
-          f"{name}: kernel without clusters disagrees by {ulps1:.0f} ulps")
     lib_ulps = bf16_ulp_error(library(x), ref)
     before = counter()
     kernel_ms = cuda_ms(kernel_fn, 10)
     check(counter() - before == 11 * len(blocks), f"{name}: timing did not launch the kernel")
-    unshared_ms = unshared(lambda: cuda_ms(kernel_fn, 10))
     plain_ms = cuda_ms(plain_fn, 3)
     library_ms = cuda_ms(lambda: library(x), 10)
     bound_ms, bound_by = blocks_bound_ms(tuple(x.shape), blocks, stride)
-    was = f" (cp.async version: {cpasync_ms:.3f} ms)" if cpasync_ms is not None else ""
-    print(f"{name} {tuple(x.shape)}: {ulps:.0f} ulps (cluster 1: {ulps1:.0f}; abs {abs_err:.3g}; "
-          f"cuDNN form {lib_ulps:.0f} ulps), kernel {kernel_ms:.3f} ms{was}, cluster 1 "
-          f"{unshared_ms:.3f} ms, plain {plain_ms:.3f} ms, eager cuDNN {library_ms:.3f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / kernel_ms:.1%} of bound")
-    return dict(ulps=max(ulps, ulps1), abs_err=abs_err, ms=kernel_ms, unshared_ms=unshared_ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    print(f"{name} {tuple(x.shape)}: {ulps:.0f} ulps (abs {abs_err:.3g}; cuDNN form {lib_ulps:.0f}"
+          f" ulps), kernel {kernel_ms:.3f} ms{'' if pr2_ms is None else f' (PR 2: {pr2_ms:.3f})'}, "
+          f"plain {plain_ms:.3f} ms, eager cuDNN "
+          f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{bound_ms / kernel_ms:.1%} of bound")
+    return dict(ulps=ulps, abs_err=abs_err, ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def check_blocks_at_path_shapes(model, fused, batch) -> tuple[dict, dict]:
@@ -338,12 +362,12 @@ def check_blocks_at_path_shapes(model, fused, batch) -> tuple[dict, dict]:
         blk = layer[1].folded(torch.bfloat16)
         r = time_blocks(f"{name} identity block", x, [blk], 1,
                         lambda: fused_bottleneck(x, *blk), lambda: bottleneck_ref(x, *blk),
-                        lambda: bottleneck.launches, CPASYNC_BLOCK_MS[name])
+                        lambda: bottleneck.launches, PR2_BLOCK_MS[name])
         per_block.append((depth - 1, r))
         x0 = inputs[(name, 0)]
         blocks = [b.folded(torch.bfloat16) for b in layer]
         cm = blk[0].shape[1]
-        print(f"  {name} launches: identity {bottleneck.plan(*x.shape[:3], cm)}, first block "
+        print(f"  {name} tiles: identity {bottleneck.plan(*x.shape[:3], cm)}, first block "
               f"{bottleneck.plan(*x0.shape[:3], cm, stride, downsample=True)}")
         r = time_blocks(f"{name} stage", x0, blocks, stride,
                         lambda: fused_bottleneck_stage(x0, blocks, stride),
@@ -352,8 +376,8 @@ def check_blocks_at_path_shapes(model, fused, batch) -> tuple[dict, dict]:
         per_stage.append((1, r))
 
     def total(rows):
-        out = {k: sum(n * r[k] for n, r in rows) for k in ("ms", "unshared_ms", "plain_ms",
-                                                           "library_ms", "bound_ms")}
+        out = {k: sum(n * r[k] for n, r in rows) for k in ("ms", "plain_ms", "library_ms",
+                                                           "bound_ms")}
         # bound_by: the kind of bound that makes up most of the summed bound.
         share = {kind: sum(n * r["bound_ms"] for n, r in rows if r["bound_by"] == kind)
                  for kind in ("bytes", "operations")}
@@ -364,10 +388,9 @@ def check_blocks_at_path_shapes(model, fused, batch) -> tuple[dict, dict]:
 
     rows = {"fused_bottleneck": total(per_block), "fused_bottleneck_stage": total(per_stage)}
     for op, r in rows.items():
-        print(f"{op} per batch: kernel {r['ms']:.3f} ms (cp.async version: "
-              f"{CPASYNC_BATCH_MS[op]:.3f} ms), "
-              f"cluster 1 {r['unshared_ms']:.3f} ms, eager cuDNN {r['library_ms']:.3f} ms, "
-              f"bound {r['bound_ms']:.3f} ms, {r['bound_ms'] / r['ms']:.1%} of bound")
+        print(f"{op} per batch: kernel {r['ms']:.3f} ms (PR 2: {PR2_BATCH_MS[op]:.3f}), eager "
+              f"cuDNN {r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms, "
+              f"{r['bound_ms'] / r['ms']:.1%} of bound")
     return rows["fused_bottleneck"], rows["fused_bottleneck_stage"]
 
 
@@ -595,6 +618,7 @@ def main() -> int:
     check(rel <= L1_TOL, f"L1 kernel disagrees at the path shape: rel {rel:.3e}")
     del v_like, cols
     check_kernels_ragged(dev)
+    check_fp32_blocks(dev)
 
     # 3. Main path.
     batches, model = main_path_inputs(dev)

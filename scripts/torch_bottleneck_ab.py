@@ -8,21 +8,18 @@ Run from the repository root on a machine with a card and ``nvcc``:
     python3 scripts/torch_bottleneck_ab.py --baseline .archive/bottleneck_old.cu
 
 It builds ``ssg_tpu_torch/csrc/bottleneck.cu`` and the baseline (same C
-interface) with the port's ``nvcc`` flags into ``ssg_tpu_torch/_build/``,
-checks both against the plain version, and times one identity block at each
-ResNet-50 path shape (batch 128, 256x128 input; random bf16 activations and
-folded weights from seed 0) in turns: current, baseline, baseline, current,
-for ``--rounds`` rounds. The current source is also timed with its cluster
-size capped at 1 (every block fetches its own weight chunks). Per layer it
-prints the median device ms of each; then the 12 identity blocks of a batch
-(2, 3, 5 and 2 in layers 1-4) and the card's name and power limit.
+interface) with the port's ``nvcc`` flags (``ops._build``), checks both
+against the plain version, and times one identity block at each ResNet-50
+path shape (batch 128, 256x128 input; random bf16 activations and folded
+weights from seed 0) in turns: current, baseline, baseline, current, for
+``--rounds`` rounds. Per layer it prints the median device ms of each; then
+the 12 identity blocks of a batch (2, 3, 5 and 2 in layers 1-4) and the
+card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import statistics
 import subprocess
 import sys
@@ -33,7 +30,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from ssg_tpu_torch.ops import _build  # noqa: E402
+from ssg_tpu_torch.ops import _build, bottleneck  # noqa: E402
 from ssg_tpu_torch.ops.bottleneck import bf16_ulp_error, bottleneck_ref  # noqa: E402
 
 # (name, H, W, C, Cm, identity blocks a batch) at batch 128.
@@ -41,19 +38,6 @@ LAYERS = (("layer1", 64, 32, 256, 64, 2), ("layer2", 32, 16, 512, 128, 3),
           ("layer3", 16, 8, 1024, 256, 5), ("layer4", 8, 4, 2048, 512, 2))
 BATCH = 128
 BF16_ULPS = 4  # kernel against the plain version, as in chip_smoke.py
-
-
-def load(src: Path) -> ctypes.CDLL:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()
-    lib = _build.BUILD_DIR / f"ab-{digest[:16]}.so"
-    if not lib.exists():
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)], check=True,
-                       capture_output=True, text=True)
-    out = ctypes.CDLL(str(lib))
-    out.ssg_bottleneck.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
-    out.ssg_bottleneck.restype = ctypes.c_int
-    return out
 
 
 def block(gen: np.random.Generator, c: int, cm: int, dev):
@@ -78,12 +62,12 @@ def main() -> int:
         print("torch_bottleneck_ab: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    cur = load(_build.CSRC / "bottleneck.cu")
-    cur.ssg_bottleneck_max_cluster.argtypes = [ctypes.c_int64]
-    base = load(args.baseline)
+    _build.build(["bottleneck", args.baseline.resolve()])  # one nvcc each, together
+    libs = {"current": bottleneck.bind(_build.load("bottleneck")),
+            "baseline": bottleneck.bind(_build.load(args.baseline.resolve()))}
     stream = torch.cuda.current_stream().cuda_stream
     gen = np.random.default_rng(0)
-    totals = {"current": 0.0, "current, cluster 1": 0.0, "baseline": 0.0}
+    totals = dict.fromkeys(libs, 0.0)
     for name, h, w, c, cm, count in LAYERS:
         x = torch.from_numpy(np.abs(gen.normal(size=(BATCH, h, w, c))).astype(np.float32))
         x = x.to(dev, torch.bfloat16)
@@ -91,40 +75,31 @@ def main() -> int:
         ref = bottleneck_ref(x, *ws)
         out = torch.empty_like(x)
 
-        def run(lib, cap=None):
+        def timed(lib):
             def go():
                 err = lib.ssg_bottleneck(x.data_ptr(), *(t.data_ptr() for t in ws), None, None,
                                          out.data_ptr(), BATCH, h, w, c, cm, c, 1, stream)
                 if err:
                     raise RuntimeError(f"ssg_bottleneck: CUDA error {err}")
 
-            def timed():
-                prev = cur.ssg_bottleneck_max_cluster(cap) if cap else None
-                try:
-                    go()
-                    torch.cuda.synchronize()
-                    ulps = bf16_ulp_error(out, ref)
-                    if ulps > BF16_ULPS:
-                        raise RuntimeError(f"{name}: {ulps:.0f} ulps from the plain version")
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    for _ in range(args.reps):
-                        go()
-                    end.record()
-                    end.synchronize()
-                    return start.elapsed_time(end) / args.reps
-                finally:
-                    if prev is not None:
-                        cur.ssg_bottleneck_max_cluster(prev)
-            return timed
+            go()
+            torch.cuda.synchronize()
+            ulps = bf16_ulp_error(out, ref)
+            if ulps > BF16_ULPS:
+                raise RuntimeError(f"{name}: {ulps:.0f} ulps from the plain version")
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(args.reps):
+                go()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / args.reps
 
-        cases = {"current": run(cur), "current, cluster 1": run(cur, 1), "baseline": run(base)}
-        times = {k: [] for k in cases}
+        times = {k: [] for k in libs}
         for _ in range(args.rounds):
-            for k in ("current", "current, cluster 1", "baseline", "baseline",
-                      "current, cluster 1", "current"):
-                times[k].append(cases[k]())
+            for k in ("current", "baseline", "baseline", "current"):
+                times[k].append(timed(libs[k]))
         med = {k: statistics.median(v) for k, v in times.items()}
         for k in totals:
             totals[k] += count * med[k]

@@ -13,11 +13,12 @@ block) from a 9 MiB buffer that stays in L2, through a ring of 4-16 slots.
 Each chunk arrives by
 
 * ``cp.async``: 16 bytes a thread, a commit group a chunk, one block
-  barrier a chunk (the bottleneck kernel's former weight stream);
+  barrier a chunk (the bottleneck kernel's weight stream);
 * ``bulk rows``: 32 bulk copies of 256 bytes (a K row of a 128-column
   weight tile), 4 a warp, completed on the slot's mbarrier, released by
-  each warp on an empty mbarrier (the bottleneck kernel's weight stream,
-  one block a cluster);
+  each warp on an empty mbarrier (the weight stream of a cluster version
+  of the bottleneck kernel that was tried and not kept, with one block a
+  cluster);
 * ``bulk chunk``: one bulk copy of 8 KB;
 * ``tensor-map box``: one 2-D tensor-map copy of the same 8 KB as a box of
   32 rows x 128 bf16 columns of a (rows, 512) matrix, unswizzled;
@@ -222,11 +223,9 @@ MODES = {0: "cp.async 16 B a thread", 1: "bulk rows, 32 x 256 B", 2: "bulk chunk
 def build() -> ctypes.CDLL:
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src = _build.BUILD_DIR / "bulk_copy_bench.cu"
-    lib = _build.BUILD_DIR / "bulk_copy_bench.so"
-    src.write_text(SOURCE)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)], check=True,
-                   capture_output=True, text=True)
-    out = ctypes.CDLL(str(lib))
+    if not src.exists() or src.read_text() != SOURCE:
+        src.write_text(SOURCE)
+    out = _build.load(src)
     out.bench_ring.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     return out

@@ -19,7 +19,8 @@
 //
 // What it keeps from the TPU kernel: y1 and y2 never reach device memory.
 // A block reads its x tile (plus a one-pixel halo) and writes its out tile
-// once.
+// once. That holds for bf16; an fp32 block (ssg_bottleneck_f32, at the end)
+// is a run of plain fp32 FMA launches with y1 and y2 in device memory.
 //
 // Bound on an H100 at the ResNet-50 path shapes (batch 128): every block
 // does 17 Cm^2 multiply-adds a pixel, 36.5 GFLOP, 36.9 us on the bf16 tensor
@@ -27,8 +28,8 @@
 // 10 us in layer1..layer4 (268 / 134 / 67 / 34 MB at 3.35 TB/s), so layer1
 // is bound by bytes and layers 3-4 by operations.
 //
-// Design (wgmma and TMA tensor maps are later work). A block of 256 threads
-// owns TR x TC output pixels of one image (at most 128). It
+// Design (right and simple first; wgmma and TMA are later work). A block of
+// 256 threads owns TR x TC output pixels of one image (at most 128). It
 //   1. computes y1 on the (TR-1)s+3 x (TC-1)s+3 input pixels under the 3x3
 //      window into shared memory, zero outside the image (the conv padding);
 //   2. computes y2 for its pixels into shared memory: an implicit GEMM whose
@@ -36,38 +37,15 @@
 //   3. computes out = relu(y2 @ w3 (+ xs @ wd) + bias (+ x)) and stores it.
 // Each product is mma.sync m16n8k16 (bf16 in, fp32 accumulators), 8 warps
 // over a GEMM tile of 128 rows x 64 columns (64 x 128 when the tile has few
-// rows). Shared addresses are computed per row once a pass, and the 3x3 taps
-// through a small table, so the K loop holds loads and mma only.
-//
-// Weights. In layers 3-4 a block's 32-64 pixels use each weight row once per
-// 16-row strip, and every block of a launch streams the same 2.2-8.9 MB of
-// weights: a launch moves 8-34 times more weight bytes from L2 than
-// activation bytes. So the blocks of a thread-block cluster (CL = 1, 2 or 4
-// neighbouring blocks, whichever tiles they own) share each weight chunk:
-// one member fetches it from L2 once and multicasts it into every member's
-// ring with bulk asynchronous copies (cp.async.bulk, one per K row, landing
-// at the row's padded offset so the ldmatrix layout is unchanged), completed
-// on each member's "full" mbarrier. Every warp of every member releases a
-// slot on the fetching member's "empty" mbarrier, and the slot is refilled
-// only after all of them have. The ring has 2-4 slots of 32-deep K chunks.
-// A chunk's row copies are spread over the 8 warps (a bulk copy costs its
-// issuing warp far more than a cp.async), and with 3-4 slots a chunk refills
-// the slot released one chunk before the one just read, so a producer seldom
-// waits. Chunks of x for the 1x1 products stay on per-thread cp.async, in
-// the same slots. Blocks that only pad the grid to a multiple of CL own no
-// pixels and take part in every handshake. Ragged H, W, C, Cm and Cout
-// (multiples of 8) are masked here: A and B rows past K read a row of zeros,
-// which is exact.
-//
-// Measured on an H100 (PERF.md): a block takes in 1-D bulk copies at about
-// 10-13 GB/s however they are sized, queued or multicast, below what 3-4
-// slots of per-thread cp.async reach, so the weight stream, not L2 traffic,
-// sets the pace in every layer; tensor-map copies and a producer warp are
-// the next step.
+// rows). Weights are streamed from L2 in 32-deep K chunks through a cp.async
+// ring of 2-4 slots (up to three chunks in flight while one is used), since
+// layer4's w2 alone is 4.7 MB; x chunks for the 1x1 products go through the
+// same ring. Shared addresses are computed per row once a pass, and the 3x3
+// taps through a small table, so the K loop holds loads and mma only.
+// Ragged H, W, C, Cm and Cout (multiples of 8) are masked here: K padding
+// loads zeros, which is exact.
 
 #include <cstdint>
-#include <cstdio>
-#include <mutex>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -76,10 +54,8 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 constexpr int KC = 32;            // K per staged chunk
-constexpr int MAX_STAGES = 4;     // ring slots: up to three chunks in flight
-constexpr int MAX_CLUSTER = 4;    // blocks sharing each weight chunk
+constexpr int MAX_STAGES = 4;     // cp.async ring slots: up to three chunks in flight
 constexpr int MAX_STRIPS = 2;     // 16-row strips a warp holds per pass
 constexpr int PAD = 8;            // bf16 of row padding: ldmatrix rows on distinct banks
 constexpr int LDA = KC + PAD;     // staged A chunk row stride
@@ -107,92 +83,11 @@ struct Params {
   bf16* out;
   int B, H, W, C, Cm, Cout, Ho, Wo;
   int TR, TC, tiles_r, tiles_c;
-  int stages;  // ring slots, 2..MAX_STAGES
-  int cl;      // cluster size: blocks sharing each weight chunk
-  int blocks;  // blocks that own pixels; the grid is padded to a multiple of cl
+  int stages;  // cp.async ring slots, 2..MAX_STAGES
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// mbarriers and cluster primitives (PTX ISA 8.0, sm_90).
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-// One arrival that also expects `bytes` more of asynchronous copies.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-// One arrival on this block's `bar` as seen in cluster member `rank`.
-__device__ __forceinline__ void mbar_arrive_at(uint64_t* bar, uint32_t rank, bool cluster) {
-  if (cluster) {
-    asm volatile("{\n\t.reg .b32 remote;\n\t"
-                 "mapa.shared::cluster.u32 remote, %0, %1;\n\t"
-                 "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
-                 :: "r"(smem_u32(bar)), "r"(rank) : "memory");
-  } else {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-  }
-}
-__device__ __forceinline__ bool mbar_try_wait(uint32_t addr, int parity) {
-  uint32_t done;
-  asm volatile("{\n\t.reg .pred p;\n\t"
-               "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-               "selp.u32 %0, 1, 0, p;\n}\n"
-               : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  return done != 0;
-}
-__device__ __forceinline__ uint64_t globaltimer() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-// Waits until the phase of `bar` with this parity has completed. A wait of
-// over 10 s can only be a broken handshake: it traps, so the launch fails
-// with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  if (mbar_try_wait(addr, parity)) return;
-  const uint64_t t0 = globaltimer();
-  while (!mbar_try_wait(addr, parity)) {
-    if (globaltimer() - t0 > 10000000000ull) {
-      printf("ssg_bottleneck: block %d thread %d stuck on mbarrier %u, parity %d\n", blockIdx.x,
-             threadIdx.x, addr, parity);
-      __trap();
-    }
-  }
-}
-__device__ __forceinline__ void fence_mbarrier_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-// `bytes` (a multiple of 16) global -> shared, completed on `bar`: into this
-// block only (cl == 1), or into the same offset of every member of the
-// cluster, each completing its own barrier at `bar`'s offset.
-__device__ __forceinline__ void bulk_copy(bf16* dst, const bf16* src, int bytes, uint64_t* bar,
-                                          int cl) {
-  if (cl > 1) {
-    const uint16_t mask = static_cast<uint16_t>((1u << cl) - 1);
-    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-                 ".multicast::cluster [%0], [%1], %2, [%3], %4;\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(mask)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-                 " [%0], [%1], %2, [%3];\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
-  }
 }
 
 // 16 bytes global -> shared; zero-filled when !valid (src is then not read).
@@ -248,37 +143,16 @@ __device__ __forceinline__ void zero_acc(Acc& acc) {
       for (int i = 0; i < 4; ++i) acc[s][t][i] = 0.f;
 }
 
-// The weight ring of a block: `stages` slots of KC x LDB_MAX bf16 (a slot's
-// rows are Grid<WC>::LDB apart within it), each with a full barrier (one
-// arrival, this block's, plus the chunk's bytes) and an empty barrier that
-// lives in cluster member slot % cl (one arrival per warp of the cluster).
-// Chunks are numbered across the passes of a block, the same way in every
-// member; (slot, phase) track the next chunk to consume, (pslot, pphase) the
-// next chunk to produce.
-struct Ring {
-  bf16* Bs;
-  uint64_t* full;
-  uint64_t* empty;
-  int stages, cl;
-  uint32_t rank;
-  int slot, phase, pslot, pphase;
-  bool refill;  // every slot has held a chunk: a new one waits for its release
-
-  __device__ __forceinline__ bool fetches(int s) const {
-    return static_cast<uint32_t>(s & (cl - 1)) == rank;
-  }
-};
-
 // acc[rows of this pass, n0 .. n0 + NC) += A[rows, 0..K) @ Bg[0..K, n0 ..).
-// Bg is (K, N) row-major bf16 in device memory, streamed KC rows at a time
-// through the ring. With STAGED_A, issue_a(slot, kc) stages chunk kc of A
-// into A's ring slot `slot` with cp.async. row_base(m) is the per-row part
-// of A's shared address, taken once per strip before the K loop; a_ptr(slot,
+// Bg is (K, N) row-major bf16 in device memory, staged KC rows at a time
+// through the ring Bs of `stages` slots. issue_a(buf, kc) stages chunk kc of A
+// into ring slot buf (if A is staged). row_base(m) is the per-row part of
+// A's shared address, taken once per strip before the K loop; a_ptr(buf,
 // base, k) is the shared address of A[m, k .. k + 8) for k < K, a multiple
-// of 8. zero8 holds 8 zeros: the rows of A and B past K read it.
-template <int WC, bool STAGED_A, class IssueA, class RowBase, class APtr>
+// of 8. zero8 holds 8 zeros (A's K padding).
+template <int WC, class IssueA, class RowBase, class APtr>
 __device__ __forceinline__ void mma_pass(Acc& acc, int strips, int K, const bf16* __restrict__ Bg,
-                                         int N, int n0, Ring& ring, const bf16* zero8,
+                                         int N, int n0, bf16* Bs, const bf16* zero8, int stages,
                                          IssueA issue_a, RowBase row_base, APtr a_ptr) {
   using G = Grid<WC>;
   const int tid = threadIdx.x;
@@ -287,8 +161,6 @@ __device__ __forceinline__ void mma_pass(Acc& acc, int strips, int K, const bf16
   const int wr = warp / WC;
   const int wc = warp % WC;
   const int nk = (K + KC - 1) / KC;
-  const int stages = ring.stages;
-  const int cols = min(G::NC, N - n0);  // B columns this pass reads
 
   int base[MAX_STRIPS];
 #pragma unroll
@@ -297,69 +169,41 @@ __device__ __forceinline__ void mma_pass(Acc& acc, int strips, int K, const bf16
     base[s] = strip < strips ? row_base(strip * 16 + (lane & 15)) : 0;
   }
 
-  // B chunk kc: every member arms its full barrier with the chunk's bytes;
-  // in the member that fetches this slot, each warp copies its RPW rows of the
-  // chunk into every member, once the whole cluster has released the slot's
-  // previous chunk. With three or more slots a chunk goes into the slot
-  // released a chunk earlier than the one just read, so that wait seldom
-  // blocks; A is staged stages - 1 chunks ahead, behind the block barrier.
-  constexpr int RPW = KC / WARPS;
-  const int ahead = stages >= 3 ? stages - 2 : 1;
-  auto produce_b = [&](int kc) {
-    const int slot = ring.pslot;
-    const int rows = min(KC, K - kc * KC);
-    if (tid == 0) mbar_expect_tx(ring.full + slot, rows * cols * 2);
-    const int k = warp * RPW + lane;
-    if (lane < RPW && k < rows && ring.fetches(slot)) {
-      if (ring.refill) mbar_wait(ring.empty + slot, ring.pphase ^ 1);
-      bulk_copy(ring.Bs + slot * (KC * LDB_MAX) + k * G::LDB,
-                Bg + static_cast<int64_t>(kc * KC + k) * N + n0, cols * 2, ring.full + slot,
-                ring.cl);
+  auto issue = [&](int buf, int kc) {
+    constexpr int PIECES = G::NC / 8;  // 16-byte pieces in a staged B row
+#pragma unroll
+    for (int i = tid; i < KC * PIECES; i += THREADS) {
+      const int k = i / PIECES;
+      const int piece = i % PIECES;
+      const int gk = kc * KC + k;
+      const int gn = n0 + piece * 8;
+      const bool ok = gk < K && gn < N;
+      cp_async16(Bs + (buf * KC + k) * G::LDB + piece * 8,
+                 ok ? Bg + static_cast<int64_t>(gk) * N + gn : Bg, ok);
     }
-    if (++ring.pslot == stages) {
-      ring.pslot = 0;
-      ring.pphase ^= 1;
-      ring.refill = true;
-    }
-  };
-  int aslot = ring.slot;  // A chunk kc lands in the slot of B chunk kc
-  auto produce_a = [&](int kc) {
-    issue_a(aslot, kc);
-    aslot = aslot + 1 == stages ? 0 : aslot + 1;
+    issue_a(buf, kc);
   };
 
   for (int st = 0; st < stages - 1; ++st) {
-    if (st < ahead && st < nk) produce_b(st);
-    if constexpr (STAGED_A) {
-      if (st < nk) produce_a(st);
-      cp_async_commit();
-    }
+    if (st < nk) issue(st, st);
+    cp_async_commit();
   }
+  int buf = 0;                // slot of chunk kc
+  int next_buf = stages - 1;  // slot of chunk kc + stages - 1
   for (int kc = 0; kc < nk; ++kc) {
-    if constexpr (STAGED_A) {
-      cp_async_wait_ring(stages);  // this thread's part of A chunk kc has landed
-      __syncthreads();             // ... every thread's, and A slot kc - 1 is free
-    }
-    if (kc + ahead < nk) produce_b(kc + ahead);
-    if constexpr (STAGED_A) {
-      if (kc + stages - 1 < nk) produce_a(kc + stages - 1);
-      cp_async_commit();
-    }
-    const int slot = ring.slot;
-    mbar_wait(ring.full + slot, ring.phase);  // B chunk kc has landed
-    const bf16* bs = ring.Bs + slot * (KC * LDB_MAX);
+    cp_async_wait_ring(stages);  // chunk kc has landed
+    __syncthreads();             // ... for every thread, and slot kc - 1 is free
+    if (kc + stages - 1 < nk) issue(next_buf, kc + stages - 1);
+    cp_async_commit();
+    const bf16* bs = Bs + buf * KC * G::LDB;
 #pragma unroll
     for (int ks = 0; ks < KC / 16; ++ks) {
       if (kc * KC + ks * 16 >= K) break;
-      // Rows past K were not copied and may hold stale bits (0 x NaN is NaN).
-      const bool row_in = kc * KC + ks * 16 + (lane & 15) < K;
       uint32_t b[4][2];
 #pragma unroll
       for (int np = 0; np < 2; ++np) {
         uint32_t r[4];
-        ldsm_x4_t(r, row_in ? bs + (ks * 16 + (lane & 15)) * G::LDB + wc * 32 + np * 16 +
-                                  (lane >> 4) * 8
-                            : zero8);
+        ldsm_x4_t(r, bs + (ks * 16 + (lane & 15)) * G::LDB + wc * 32 + np * 16 + (lane >> 4) * 8);
         b[2 * np][0] = r[0];
         b[2 * np][1] = r[1];
         b[2 * np + 1][0] = r[2];
@@ -370,20 +214,16 @@ __device__ __forceinline__ void mma_pass(Acc& acc, int strips, int K, const bf16
       for (int s = 0; s < MAX_STRIPS; ++s) {
         if (wr + G::WR * s < strips) {
           uint32_t a[4];
-          ldsm_x4(a, k < K ? a_ptr(slot, base[s], k) : zero8);
+          ldsm_x4(a, k < K ? a_ptr(buf, base[s], k) : zero8);
 #pragma unroll
           for (int t = 0; t < 4; ++t) mma16816(acc[s][t], a, b[t][0], b[t][1]);
         }
       }
     }
-    __syncwarp();  // the warp's reads of the slot are done
-    if (lane == 0) mbar_arrive_at(ring.empty + slot, slot & (ring.cl - 1), ring.cl > 1);
-    if (++ring.slot == stages) {
-      ring.slot = 0;
-      ring.phase ^= 1;
-    }
+    buf = buf + 1 == stages ? 0 : buf + 1;
+    next_buf = next_buf + 1 == stages ? 0 : next_buf + 1;
   }
-  __syncthreads();  // the next pass's prologue refills A's slots and y1 / y2
+  __syncthreads();  // the next pass's prologue refills the ring
 }
 
 // Calls f(s, t, h, m, n) for each accumulator pair this thread holds:
@@ -461,7 +301,7 @@ struct StagedX {
   }
 
 template <int S, bool DS>
-__global__ void __launch_bounds__(THREADS, 2) bottleneck_kernel(const Params p) {
+__global__ void __launch_bounds__(THREADS) bottleneck_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int TRin = (p.TR - 1) * S + 3;
   const int TCin = (p.TC - 1) * S + 3;
@@ -478,29 +318,16 @@ __global__ void __launch_bounds__(THREADS, 2) bottleneck_kernel(const Params p) 
   bf16* As = y1s + M1p * LD1;
   bf16* y2s = DS ? As + stages * MT_MAX * LDA : As;
   bf16* Bs = DS ? y2s + Pp * LD1 : As + max(stages * MT_MAX * LDA, Pp * LD1);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(Bs + stages * KC * LDB_MAX);
-  bf16* zero8 = reinterpret_cast<bf16*>(bars + 2 * MAX_STAGES);
+  bf16* zero8 = Bs + stages * KC * LDB_MAX;
   // 3x3 tap table: ktab[k / 8] = y1 offset of A column k = (dr*3 + dc)*Cm + j.
   int* ktab = reinterpret_cast<int*>(zero8 + 8);
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(bars + s, 1);
-      mbar_init(bars + MAX_STAGES + s, WARPS * p.cl);
-    }
-    fence_mbarrier_init();
-  }
   if (threadIdx.x < 8) zero8[threadIdx.x] = __float2bfloat16(0.f);
   for (int i = threadIdx.x; i < 9 * p.Cm / 8; i += THREADS) {
     const int tap = i * 8 / p.Cm;
     ktab[i] = ((tap / 3) * TCin + tap % 3) * LD1 + i * 8 - tap * p.Cm;
   }
-  // Every member's barriers exist before any member copies into it.
-  if (p.cl > 1) cluster_sync();
-  else __syncthreads();
-  Ring ring{Bs, bars, bars + MAX_STAGES, stages, p.cl, cluster_rank(), 0, 0, 0, 0, false};
 
   int bid = blockIdx.x;
-  const bool live = bid < p.blocks;  // else the block only pads the grid: no pixels
   const int tc = bid % p.tiles_c;
   bid /= p.tiles_c;
   const int tr = bid % p.tiles_r;
@@ -515,17 +342,16 @@ __global__ void __launch_bounds__(THREADS, 2) bottleneck_kernel(const Params p) 
 
   // NHWC pixel of halo row m, or -1 outside the image.
   auto halo_pixel = [&](int m) -> int64_t {
-    if (!live || m >= M1) return -1;
+    if (m >= M1) return -1;
     const int h = hi0 + m / TCin;
     const int w = wi0 + m % TCin;
     if (h < 0 || h >= p.H || w < 0 || w >= p.W) return -1;
     return img + static_cast<int64_t>(h) * p.W + w;
   };
   auto staged_base = [](int m) { return m * LDA; };
-  auto staged_ptr = [&](int slot, int base, int k) {
-    return As + slot * MT_MAX * LDA + base + (k & (KC - 1));
+  auto staged_ptr = [&](int buf, int base, int k) {
+    return As + buf * MT_MAX * LDA + base + (k & (KC - 1));
   };
-  auto no_a = [](int, int) {};
   Acc acc;
 
   // 1. y1 on the halo window, zero outside the image.
@@ -536,8 +362,8 @@ __global__ void __launch_bounds__(THREADS, 2) bottleneck_kernel(const Params p) 
     SSG_PASS(rows, {
       for (int n0 = 0; n0 < p.Cm; n0 += Grid<WC>::NC) {
         zero_acc(acc);
-        mma_pass<WC, true>(acc, strips, p.C, p.w1, p.Cm, n0, ring, zero8, stage_x, staged_base,
-                           staged_ptr);
+        mma_pass<WC>(acc, strips, p.C, p.w1, p.Cm, n0, Bs, zero8, stages, stage_x, staged_base,
+                     staged_ptr);
         epilogue<WC>(acc, strips, n0, [&](int m, int n, float v0, float v1) {
           if (n >= p.Cm) return;
           const bool in = halo_pixel(mb + m) >= 0;
@@ -561,8 +387,8 @@ __global__ void __launch_bounds__(THREADS, 2) bottleneck_kernel(const Params p) 
     SSG_PASS(Pp, {
       for (int n0 = 0; n0 < p.Cm; n0 += Grid<WC>::NC) {
         zero_acc(acc);
-        mma_pass<WC, false>(acc, strips, 9 * p.Cm, p.w2, p.Cm, n0, ring, zero8, no_a, row_base,
-                            a_ptr);
+        mma_pass<WC>(acc, strips, 9 * p.Cm, p.w2, p.Cm, n0, Bs, zero8, stages, [](int, int) {},
+                     row_base, a_ptr);
         epilogue<WC>(acc, strips, n0, [&](int m, int n, float v0, float v1) {
           if (n >= p.Cm) return;
           store2(y2s + m * LD1 + n, fmaxf(v0 + p.b2[n], 0.f), fmaxf(v1 + p.b2[n + 1], 0.f));
@@ -577,7 +403,7 @@ __global__ void __launch_bounds__(THREADS, 2) bottleneck_kernel(const Params p) 
     const int strips = Pp / 16;
     // Output pixel of tile row m (NHWC offset in out), or -1.
     auto out_pixel = [&](int m) -> int64_t {
-      if (!live || m >= P) return -1;
+      if (m >= P) return -1;
       const int r = r0 + m / p.TC;
       const int c = c0 + m % p.TC;
       if (r >= p.Ho || c >= p.Wo) return -1;
@@ -604,11 +430,11 @@ __global__ void __launch_bounds__(THREADS, 2) bottleneck_kernel(const Params p) 
           });
         }
         zero_acc(acc);
-        mma_pass<WC, false>(acc, strips, p.Cm, p.w3, p.Cout, n0, ring, zero8, no_a, y2_base,
-                            y2_ptr);
+        mma_pass<WC>(acc, strips, p.Cm, p.w3, p.Cout, n0, Bs, zero8, stages, [](int, int) {}, y2_base,
+                     y2_ptr);
         if constexpr (DS) {
-          mma_pass<WC, true>(acc, strips, p.C, p.wd, p.Cout, n0, ring, zero8, stage_xs,
-                             staged_base, staged_ptr);
+          mma_pass<WC>(acc, strips, p.C, p.wd, p.Cout, n0, Bs, zero8, stages, stage_xs, staged_base,
+                       staged_ptr);
         }
         for_each_pair<WC>(strips, n0, [&](int s, int t, int h, int m, int n) {
           const int64_t pix = out_pixel(m);
@@ -627,8 +453,6 @@ __global__ void __launch_bounds__(THREADS, 2) bottleneck_kernel(const Params p) 
       }
     })
   }
-  // No member leaves while a peer may still arrive on its barriers.
-  if (p.cl > 1) cluster_sync();
 }
 
 #undef SSG_PASS
@@ -638,7 +462,7 @@ int smem_bytes(int TR, int TC, int S, bool ds, int Cm, int stages) {
   const int y2 = round16(TR * TC) * (Cm + PAD);
   const int ring_a = stages * MT_MAX * LDA;
   return (M1p * (Cm + PAD) + (ds ? ring_a + y2 : (ring_a > y2 ? ring_a : y2)) +
-          stages * KC * LDB_MAX + 8) * 2 + 2 * MAX_STAGES * 8 + 9 * Cm / 8 * 4;
+          stages * KC * LDB_MAX + 8) * 2 + 9 * Cm / 8 * 4;
 }
 
 // Output tile of a block: at most cap pixels (full output width where it
@@ -672,131 +496,138 @@ bool plan(int B, int Ho, int Wo, int S, bool ds, int Cm, int* TR, int* TC, int* 
   }
 }
 
-using Kernel = void (*)(const Params);
+// fp32 blocks. The TPU kernel takes fp32 activations too (its products take
+// x.dtype), and mma.sync has no fp32 form, so an fp32 block is a run of
+// conv_f32_kernel launches, a tiled implicit GEMM on the fp32 FMA units: y1,
+// y2 and a downsample block's residual pass through device memory. Right and
+// simple first: no path runs fp32 blocks at speed.
+constexpr int F_BM = 64;  // output pixels of a block
+constexpr int F_BN = 64;  // output channels of a block
+constexpr int F_BK = 16;  // K per staged chunk
 
-// Everything about a launch that follows from its shape and the card.
-struct Launch {
-  int TR, TC, stages, smem;
-  int blocks;        // blocks that own pixels
-  int cl;            // cluster size
-  int grid;          // blocks rounded up to a multiple of cl
-  int max_clusters;  // clusters of cl blocks the card holds at once
-  Kernel kernel;
+struct ConvF32 {
+  const float* in;    // (B, H, W, Cin) NHWC
+  const float* w;     // (R * R * Cin, Cout) row-major (HWIO flattened)
+  const float* bias;  // (Cout,)
+  const float* res;   // (B, Ho, Wo, Cout) added before the ReLU, or nullptr
+  float* out;         // (B, Ho, Wo, Cout)
+  int B, H, W, Cin, Ho, Wo, Cout, R, S;
+  bool relu;
 };
 
-int max_cluster = MAX_CLUSTER;  // cap on cl (ssg_bottleneck_max_cluster)
+// out[m, n] = act(sum_k A[m, k] w[k, n] + bias[n] + res[m, n]), where output
+// pixel m = (b, ho, wo), k = (dr * R + dc) * Cin + ci and A[m, k] =
+// in[b, ho * S + dr - R / 2, wo * S + dc - R / 2, ci], zero outside the image.
+// 256 threads hold a 64 x 64 tile, 4 x 4 outputs each, strided by 16.
+__global__ void __launch_bounds__(THREADS) conv_f32_kernel(const ConvF32 p) {
+  __shared__ float As[F_BK][F_BM + 4];
+  __shared__ float Bs[F_BK][F_BN];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int64_t M = static_cast<int64_t>(p.B) * p.Ho * p.Wo;
+  const int K = p.R * p.R * p.Cin;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * F_BM;
+  const int n0 = blockIdx.y * F_BN;
+  const int pad = p.R / 2;
 
-// cudaOccupancyMaxActiveClusters by (device, kernel, shared bytes, cl):
-// launches repeat a few shapes, so each is asked for once.
-std::mutex cache_mutex;
-struct Occupancy {
-  int device;
-  Kernel kernel;
-  int smem, cl, clusters;
-};
-Occupancy cache[64];
-int cached = 0;
+  // This thread stages A row a_row, columns a_k .. a_k + 3 of each chunk.
+  const int a_row = tid / 4;
+  const int a_k = tid % 4 * 4;
+  const int64_t am = m0 + a_row;
+  int64_t a_img = -1;  // NHWC offset of image b, or -1 past the last pixel
+  int a_h = 0, a_w = 0;
+  if (am < M) {
+    const int wo = static_cast<int>(am % p.Wo);
+    const int64_t t = am / p.Wo;
+    a_h = static_cast<int>(t % p.Ho) * p.S - pad;
+    a_w = wo * p.S - pad;
+    a_img = t / p.Ho * p.H * p.W;
+  }
+  // ... and B row b_row, columns b_n .. b_n + 3.
+  const int b_row = tid / 16;
+  const int b_n = tid % 16 * 4;
 
-cudaError_t active_clusters(int device, Kernel kernel, int smem, int cl, int* clusters) {
-  std::lock_guard<std::mutex> lock(cache_mutex);
-  for (int i = 0; i < cached; ++i) {
-    const Occupancy& o = cache[i];
-    if (o.device == device && o.kernel == kernel && o.smem == smem && o.cl == cl) {
-      *clusters = o.clusters;
-      return cudaSuccess;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += F_BK) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = k0 + a_k + e;
+      float v = 0.f;
+      if (a_img >= 0 && k < K) {
+        const int tap = k / p.Cin;
+        const int h = a_h + tap / p.R;
+        const int w = a_w + tap % p.R;
+        if (h >= 0 && h < p.H && w >= 0 && w < p.W)
+          v = p.in[(a_img + static_cast<int64_t>(h) * p.W + w) * p.Cin + k - tap * p.Cin];
+      }
+      As[a_k + e][a_row] = v;
+      const int k_b = k0 + b_row;
+      const int n = n0 + b_n + e;
+      Bs[b_row][b_n + e] = k_b < K && n < p.Cout ? p.w[static_cast<int64_t>(k_b) * p.Cout + n] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < F_BK; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n >= p.Cout) continue;
+      float v = acc[i][j] + p.bias[n];
+      if (p.res != nullptr) v += p.res[m * p.Cout + n];
+      p.out[m * p.Cout + n] = p.relu ? fmaxf(v, 0.f) : v;
     }
   }
-  cudaError_t err;
-  if (cl == 1) {  // resident blocks
-    int per_sm, sms;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    *clusters = per_sm * sms;
-  } else {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(cl);
-    cfg.blockDim = dim3(THREADS);
-    cfg.dynamicSmemBytes = smem;
-    cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = cl;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-    err = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
-  }
-  if (err == cudaSuccess && cached < 64) cache[cached++] = {device, kernel, smem, cl, *clusters};
-  return err;
 }
 
-// The tile and ring from plan(), then the cluster size: the largest of
-// MAX_CLUSTER, ..., 2 (up to max_cluster) whose resident clusters cover the
-// grid in no more waves than CL = 1 does, else 1. Layers 1-4 fill the card
-// in 8, 2, 1 and 1 waves; a GPC whose SM count is not a multiple of CL
-// leaves a few SMs out of clusters, which costs nothing while the wave
-// count holds.
-cudaError_t make_launch(int B, int Ho, int Wo, int S, bool ds, int Cm, Launch* L) {
-  if (!plan(B, Ho, Wo, S, ds, Cm, &L->TR, &L->TC, &L->stages)) return cudaErrorInvalidValue;
-  const int64_t blocks = static_cast<int64_t>(B) * ((Ho + L->TR - 1) / L->TR) *
-                         ((Wo + L->TC - 1) / L->TC);
-  if (blocks > (1LL << 30)) return cudaErrorInvalidConfiguration;
-  L->blocks = static_cast<int>(blocks);
-  L->smem = smem_bytes(L->TR, L->TC, S, ds, Cm, L->stages);
-  L->kernel = !ds ? bottleneck_kernel<1, false>
-                  : S == 1 ? bottleneck_kernel<1, true> : bottleneck_kernel<2, true>;
-  cudaError_t err =
-      cudaFuncSetAttribute(L->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L->smem);
-  int device, one;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = active_clusters(device, L->kernel, L->smem, 1, &one);
-  if (err != cudaSuccess) return err;
-  if (one <= 0) return cudaErrorInvalidConfiguration;
-  L->cl = 1;
-  L->max_clusters = one;
-  const int64_t waves = (blocks + one - 1) / one;
-  for (int cl = max_cluster; cl >= 2; cl /= 2) {
-    int n;
-    err = active_clusters(device, L->kernel, L->smem, cl, &n);
-    if (err != cudaSuccess) return err;
-    const int64_t grid = (blocks + cl - 1) / cl * cl;
-    if (n > 0 && (grid + n * cl - 1) / (n * cl) <= waves) {
-      L->cl = cl;
-      L->max_clusters = n;
-      break;
-    }
-  }
-  L->grid = (L->blocks + L->cl - 1) / L->cl * L->cl;
-  return cudaSuccess;
+cudaError_t conv_f32(const float* in, const float* w, const float* bias, const float* res,
+                     float* out, int B, int H, int W, int Cin, int Cout, int R, int S, bool relu,
+                     cudaStream_t stream) {
+  const ConvF32 p{in, w, bias, res, out, B, H, W, Cin, (H - 1) / S + 1, (W - 1) / S + 1, Cout,
+                  R, S, relu};
+  const int64_t tiles = (static_cast<int64_t>(B) * p.Ho * p.Wo + F_BM - 1) / F_BM;
+  if (tiles > 2147483647LL) return cudaErrorInvalidConfiguration;
+  conv_f32_kernel<<<dim3(static_cast<unsigned>(tiles), (Cout + F_BN - 1) / F_BN), THREADS, 0,
+                    stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Caps the cluster size at n (1, 2 or 4) for later launches and plans, for
-// measuring the shared weight chunks against unshared ones; returns the
-// previous cap.
-extern "C" int ssg_bottleneck_max_cluster(int64_t n) {
-  const int prev = max_cluster;
-  max_cluster = n >= MAX_CLUSTER ? MAX_CLUSTER : n >= 2 ? 2 : 1;
-  return prev;
-}
-
-// The launch of a block on this shape (ds != 0: a downsample block), for
-// tests and reports: out[0..7] = TR, TC, blocks that own pixels, shared
-// bytes, ring slots, cluster size, grid (blocks padded to a multiple of the
-// cluster size), clusters the card holds at once. Returns 0 or a CUDA error
-// (cudaErrorInvalidValue if no tile fits).
+// Output tile, grid size and dynamic shared memory of a launch (ds != 0: a
+// downsample block), for tests and reports: out[0..4] = TR, TC, blocks,
+// shared bytes, ring slots. Returns 0, or cudaErrorInvalidValue if no tile
+// fits.
 extern "C" int ssg_bottleneck_plan(int64_t B, int64_t H, int64_t W, int64_t Cm, int64_t stride,
                                    int64_t ds, int64_t* out) {
-  Launch L;
-  const cudaError_t err =
-      make_launch(static_cast<int>(B), static_cast<int>((H - 1) / stride + 1),
-                  static_cast<int>((W - 1) / stride + 1), static_cast<int>(stride), ds != 0,
-                  static_cast<int>(Cm), &L);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t fields[8] = {L.TR, L.TC, L.blocks, L.smem, L.stages, L.cl, L.grid, L.max_clusters};
-  for (int i = 0; i < 8; ++i) out[i] = fields[i];
+  const int Ho = static_cast<int>((H - 1) / stride + 1);
+  const int Wo = static_cast<int>((W - 1) / stride + 1);
+  int TR, TC, stages;
+  if (!plan(static_cast<int>(B), Ho, Wo, static_cast<int>(stride), ds != 0, static_cast<int>(Cm),
+            &TR, &TC, &stages))
+    return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = TR;
+  out[1] = TC;
+  out[2] = B * ((Ho + TR - 1) / TR) * ((Wo + TC - 1) / TC);
+  out[3] = smem_bytes(TR, TC, static_cast<int>(stride), ds != 0, static_cast<int>(Cm), stages);
+  out[4] = stages;
   return 0;
 }
 
@@ -833,29 +664,46 @@ extern "C" int ssg_bottleneck(const void* x, const void* w1, const float* b1, co
   p.Cout = static_cast<int>(Cout);
   p.Ho = static_cast<int>((H - 1) / stride + 1);
   p.Wo = static_cast<int>((W - 1) / stride + 1);
-  Launch L;
-  cudaError_t err = make_launch(p.B, p.Ho, p.Wo, static_cast<int>(stride), ds, p.Cm, &L);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  p.TR = L.TR;
-  p.TC = L.TC;
+  if (!plan(p.B, p.Ho, p.Wo, static_cast<int>(stride), ds, p.Cm, &p.TR, &p.TC, &p.stages))
+    return static_cast<int>(cudaErrorInvalidValue);
   p.tiles_r = (p.Ho + p.TR - 1) / p.TR;
   p.tiles_c = (p.Wo + p.TC - 1) / p.TC;
-  p.stages = L.stages;
-  p.cl = L.cl;
-  p.blocks = L.blocks;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(L.grid);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = L.smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = L.cl;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, L.kernel, p);
+  const int64_t blocks = B * p.tiles_r * p.tiles_c;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int smem = smem_bytes(p.TR, p.TC, static_cast<int>(stride), ds, p.Cm, p.stages);
+  void (*kernel)(const Params) = !ds ? bottleneck_kernel<1, false>
+                                 : stride == 1 ? bottleneck_kernel<1, true>
+                                               : bottleneck_kernel<2, true>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(blocks), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The same block in fp32: every tensor fp32, NHWC-contiguous, plus device
+// workspaces y1 (B, H, W, Cm), y2 (B, Ho, Wo, Cm) and, for a downsample
+// block, res (B, Ho, Wo, Cout). Launches conv_f32_kernel three times (four
+// for a downsample block) on `stream`; returns the first CUDA error, or 0.
+extern "C" int ssg_bottleneck_f32(const float* x, const float* w1, const float* b1,
+                                  const float* w2, const float* b2, const float* w3,
+                                  const float* b3, const float* wd, const float* bd, float* out,
+                                  float* y1, float* y2, float* res, int64_t B, int64_t H,
+                                  int64_t W, int64_t C, int64_t Cm, int64_t Cout, int64_t stride,
+                                  void* stream) {
+  const bool ds = wd != nullptr;
+  if ((stride != 1 && stride != 2) || (!ds && (stride != 1 || Cout != C)) || B <= 0 || H <= 0 ||
+      W <= 0 || C <= 0 || Cm <= 0 || Cout <= 0 || B * H * W > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int b = static_cast<int>(B), h = static_cast<int>(H), w = static_cast<int>(W);
+  const int c = static_cast<int>(C), cm = static_cast<int>(Cm), cout = static_cast<int>(Cout);
+  const int s = static_cast<int>(stride);
+  const int ho = (h - 1) / s + 1, wo = (w - 1) / s + 1;
+  cudaError_t err = conv_f32(x, w1, b1, nullptr, y1, b, h, w, c, cm, 1, 1, true, st);
+  if (err == cudaSuccess) err = conv_f32(y1, w2, b2, nullptr, y2, b, h, w, cm, cm, 3, s, true, st);
+  if (err == cudaSuccess && ds) err = conv_f32(x, wd, bd, nullptr, res, b, h, w, c, cout, 1, s,
+                                               false, st);
+  if (err == cudaSuccess) err = conv_f32(y2, w3, b3, ds ? res : x, out, b, ho, wo, cm, cout, 1, 1,
+                                         true, st);
+  return static_cast<int>(err);
 }

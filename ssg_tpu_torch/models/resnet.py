@@ -20,8 +20,8 @@ ways — whole map, upper half, lower half — each with its own head.
 * ``fused_eval`` (off by default, as in JAX): in eval mode each identity
   bottleneck (stride 1, ``cin == 4 * features``) folds its BatchNorms into
   the conv weights and runs ``ops.bottleneck.fused_bottleneck`` (the CUDA
-  kernel on the card in bf16; its plain version in fp32). Those blocks keep their conv weights in fp32, as
-  Flax keeps its parameters, and fold from them: folding a bf16-stored
+  kernels on the card, bf16 or fp32). Those blocks keep their conv weights
+  in fp32, as Flax keeps its parameters, and fold from them: folding a bf16-stored
   weight would round twice. Other convs are stored in ``dtype``; train
   mode casts the fp32 masters to ``dtype`` at each conv.
 
@@ -100,8 +100,9 @@ class Bottleneck(nn.Module):
     def forward(self, x):
         if self.fused_eval and not self.training and self.downsample is None:
             # NCHW with channels-last strides is NHWC-contiguous once permuted:
-            # the kernel reads and writes it with no layout copy.
-            out = fused_bottleneck(x.permute(0, 2, 3, 1), *self.folded(x.dtype))
+            # the kernel reads and writes it with no layout copy (other
+            # strides are copied once).
+            out = fused_bottleneck(x.permute(0, 2, 3, 1).contiguous(), *self.folded(x.dtype))
             return out.permute(0, 3, 1, 2)
         residual = x if self.downsample is None else self.downsample(x)
         y = self.relu(self.bn1(self._conv(self.conv1, x)))

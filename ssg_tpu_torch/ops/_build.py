@@ -3,9 +3,10 @@
 Each ``ssg_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, under
 ``ssg_tpu_torch/_build/`` (git-ignored), keyed by a hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is not.
-Only the repository's own sources are built; a failed build raises, and
-nothing falls back to another implementation.
+the flags, so an edited source is rebuilt and an unchanged one is not. A
+source is named by ``<name>``, or by its path (the measurement scripts
+build other versions of a source and their own probes the same way). A
+failed build raises, and nothing falls back to another implementation.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[Path, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -37,13 +38,17 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+def _source(name: str | Path) -> Path:
+    return name if isinstance(name, Path) else CSRC / f"{name}.cu"
+
+
+def _lib_path(name: str | Path) -> Path:
+    src = _source(name)
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: list[str]) -> dict[str, str]:
+def build(names: list[str | Path]) -> dict[str | Path, str]:
     """Compile every named source that has no current library, one ``nvcc``
     per source, all started together. Returns each name's ptxas report
     (empty for a library that was already built)."""
@@ -54,7 +59,7 @@ def build(names: list[str]) -> dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name))]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), tmp, out)
     reports = {name: "" for name in names}
@@ -63,7 +68,7 @@ def build(names: list[str]) -> dict[str, str]:
         log, _ = proc.communicate()
         reports[name] = log
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            failed.append(f"{_source(name).name} (nvcc exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
@@ -72,11 +77,13 @@ def build(names: list[str]) -> dict[str, str]:
     return reports
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
+def load(name: str | Path) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (or of the source at a
+    path), built first if needed."""
+    path = _lib_path(name)
+    lib = _loaded.get(path)
     if lib is None:
         build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _loaded[name] = lib
+        lib = ctypes.CDLL(str(path))
+        _loaded[path] = lib
     return lib

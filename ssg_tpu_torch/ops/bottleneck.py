@@ -8,11 +8,10 @@ activations of type ``x.dtype`` with fp32 accumulation:
     y2  = relu(conv3x3(y1, w2) + b2)   -> x.dtype
     out = relu(y2 @ w3 + b3 + x)       -> x.dtype
 
-On the card a bf16 block is the hand-written CUDA kernel
-``csrc/bottleneck.cu``, which keeps y1 and y2 in shared memory and shares
-each weight chunk across a thread-block cluster. ``bottleneck_ref`` is its
-plain PyTorch version: the CPU runs it, an fp32 block runs it on any device,
-and the kernel is held against it on the card.
+On the card it is the hand-written CUDA source ``csrc/bottleneck.cu``: for
+bf16 one fused kernel that keeps y1 and y2 in shared memory, for fp32 a run
+of plain fp32 kernels. ``bottleneck_ref`` is its plain PyTorch version: the
+CPU runs it, and the kernels are held against it on the card.
 Public layouts are the JAX package's: NHWC ``x``, w1 ``(C, Cm)``, w2
 ``(3, 3, Cm, Cm)`` (HWIO), w3 ``(Cm, C)``, fp32 biases.
 """
@@ -31,22 +30,32 @@ from ssg_tpu_torch.ops import _build
 # that the fused-eval path went through the kernel).
 launches = 0
 
-_fns = {}
+# C signatures of the kernel entry points of csrc/bottleneck.cu.
+_SIGNATURES = {
+    "ssg_bottleneck": [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 7 + [ctypes.c_void_p],
+    "ssg_bottleneck_f32": [ctypes.c_void_p] * 13 + [ctypes.c_int64] * 7 + [ctypes.c_void_p],
+    "ssg_bottleneck_plan": [ctypes.c_int64] * 6 + [ctypes.c_void_p],
+}
+_lib = None
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Give the entry points ``lib`` has of ``_SIGNATURES`` their C
+    signatures: a library built from ``csrc/bottleneck.cu``, or from another
+    version of that source with the same interface (``_build.load(path)``)."""
+    for name, argtypes in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
 
 
 def _lib_fn(name: str):
-    fn = _fns.get(name)
-    if fn is None:
-        fn = getattr(_build.load("bottleneck"), name)
-        if name == "ssg_bottleneck":
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
-        elif name == "ssg_bottleneck_plan":
-            fn.argtypes = [ctypes.c_int64] * 6 + [ctypes.c_void_p]
-        else:
-            fn.argtypes = [ctypes.c_int64]
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return fn
+    global _lib
+    if _lib is None:
+        _lib = bind(_build.load("bottleneck"))
+    return getattr(_lib, name)
 
 
 def fold_bn(kernel, scale, bias, mean, var, eps: float = 1e-5):
@@ -114,14 +123,17 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device)
 
 
 def launch_block(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, stride: int = 1) -> torch.Tensor:
-    """One launch of ``csrc/bottleneck.cu`` on CUDA tensors; counts nothing.
+    """One block by ``csrc/bottleneck.cu`` on CUDA tensors; counts nothing.
 
-    ``x`` is bf16 NHWC-contiguous (a channels-last NCHW tensor permuted to
-    NHWC is). Weights are cast to ``x.dtype`` (a no-op for folded bf16
-    weights) and must then be contiguous; biases are fp32.
+    ``x`` is NHWC-contiguous (a channels-last NCHW tensor permuted to NHWC
+    is), bf16 (one launch of the fused kernel) or fp32 (``ssg_bottleneck_f32``:
+    three launches of the fp32 kernel, four with a downsample, through
+    workspaces in device memory). Weights are cast to ``x.dtype`` (a no-op
+    for folded weights) and must then be contiguous; biases are fp32.
     """
-    if x.device.type != "cuda" or x.dtype != torch.bfloat16 or x.dim() != 4:
-        raise ValueError(f"fused_bottleneck: x must be a 4-D bf16 CUDA tensor, "
+    if (x.device.type != "cuda" or x.dtype not in (torch.bfloat16, torch.float32)
+            or x.dim() != 4):
+        raise ValueError(f"fused_bottleneck: x must be a 4-D bf16 or fp32 CUDA tensor, "
                          f"got {x.dtype} {tuple(x.shape)} on {x.device}")
     if stride not in (1, 2) or (wd is None and stride != 1):
         raise ValueError(f"fused_bottleneck: stride {stride} needs a downsample block")
@@ -146,39 +158,31 @@ def launch_block(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, stride: int = 1) -
         _check("bd", bd, torch.float32, (cout,), dev)
         ptrs = [wd.data_ptr(), bd.data_ptr()]
     out = torch.empty((b, (h - 1) // stride + 1, (w - 1) // stride + 1, cout), dtype=dt, device=dev)
-    fn = _lib_fn("ssg_bottleneck")
+    args = [x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            w3.data_ptr(), b3.data_ptr(), *ptrs, out.data_ptr()]
+    if dt == torch.float32:
+        # Workspaces for y1, y2 and a downsample residual; freed when this
+        # returns, which the caching allocator orders after the stream's use.
+        y1 = torch.empty((b, h, w, cm), dtype=dt, device=dev)
+        y2 = torch.empty(out.shape[:3] + (cm,), dtype=dt, device=dev)
+        res = torch.empty_like(out) if wd is not None else None
+        args += [y1.data_ptr(), y2.data_ptr(), None if res is None else res.data_ptr()]
+    fn = _lib_fn("ssg_bottleneck" if dt == torch.bfloat16 else "ssg_bottleneck_f32")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                 w3.data_ptr(), b3.data_ptr(), *ptrs, out.data_ptr(),
-                 b, h, w, c, cm, cout, stride, stream)
+        err = fn(*args, b, h, w, c, cm, cout, stride, stream)
     if err != 0:
         raise RuntimeError(f"fused_bottleneck: kernel launch failed with CUDA error {err}")
     return out
 
 
-PLAN_FIELDS = ("tile_rows", "tile_cols", "blocks", "smem_bytes", "ring_slots", "cluster", "grid",
-               "max_active_clusters")
-
-
 def plan(b: int, h: int, w: int, cm: int, stride: int = 1, downsample: bool = False) -> dict:
-    """The kernel's launch on the current card for an input shape: output
-    tile, blocks that own pixels, shared memory, ring slots, cluster size
-    (blocks sharing each weight chunk), grid (padded to a multiple of the
-    cluster size) and the clusters of that size the card holds at once."""
-    out = (ctypes.c_int64 * len(PLAN_FIELDS))()
+    """The kernel's output tile, grid and shared memory for an input shape."""
+    out = (ctypes.c_int64 * 5)()
     err = _lib_fn("ssg_bottleneck_plan")(b, h, w, cm, stride, int(downsample), out)
     if err != 0:
-        raise ValueError(f"fused_bottleneck: no launch fits Cm={cm} (CUDA error {err})")
-    return dict(zip(PLAN_FIELDS, out))
-
-
-def set_max_cluster(n: int) -> int:
-    """Cap the kernel's cluster size at ``n`` (1, 2 or 4) for later launches;
-    returns the old cap. The plan seldom picks 1 on an H100, so this is how
-    tests reach the unclustered path and ``chip_smoke.py`` times shared weight
-    chunks against unshared ones in one run."""
-    return _lib_fn("ssg_bottleneck_max_cluster")(n)
+        raise ValueError(f"fused_bottleneck: no tile fits Cm={cm} (CUDA error {err})")
+    return dict(zip(("tile_rows", "tile_cols", "blocks", "smem_bytes", "ring_slots"), out))
 
 
 def bf16_ulp_error(out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -201,14 +205,12 @@ def fused_bottleneck(x, w1, b1, w2, b2, w3, b3):
     """Identity bottleneck with BN pre-folded into (w, b) pairs.
 
     x: (B, H, W, C) NHWC; w1 (C, Cm), w2 (3, 3, Cm, Cm), w3 (Cm, C); b*: fp32.
-    Returns (B, H, W, C) in ``x.dtype``. The rule goes by device and dtype:
-    CPU tensors, and fp32 tensors on any device, take the plain version in
-    true fp32 (as the JAX op computes an fp32 block off the TPU through its
-    reference); that is not a launch. Any other CUDA tensor launches the
-    kernel (bf16, NHWC-contiguous, channels multiples of 8, else it raises).
+    Returns (B, H, W, C) in ``x.dtype``. CUDA tensors launch the kernel
+    (bf16 or fp32, NHWC-contiguous, channels multiples of 8, else it
+    raises); CPU tensors take the plain version.
     """
     global launches
-    if x.device.type == "cpu" or x.dtype == torch.float32:
+    if x.device.type == "cpu":
         return bottleneck_ref(x, w1, b1, w2, b2, w3, b3)
     out = launch_block(x, w1, b1, w2, b2, w3, b3)
     launches += 1

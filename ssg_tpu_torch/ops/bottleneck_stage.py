@@ -35,13 +35,11 @@ def fused_bottleneck_stage(x: torch.Tensor, blocks, stride: int = 1) -> torch.Te
     downsample block (first only) and ``(w1, b1, w2, b2, w3, b3)`` for an
     identity block, BN folded; w1/w3/wd as ``(Cin, Cout)``, w2 as
     ``(3, 3, Cm, Cm)``. ``stride`` applies to a downsample first block.
-    The rule goes by device and dtype: CPU tensors, and fp32 tensors on any
-    device, take the plain version in true fp32 (as the JAX op does off the
-    TPU), with no launch counted; any other CUDA tensor launches the kernel
-    once per block.
+    CUDA tensors (bf16 or fp32) run ``launch_block`` once per block; CPU
+    tensors take the plain version.
     """
     global launches
-    if x.device.type == "cpu" or x.dtype == torch.float32:
+    if x.device.type == "cpu":
         return stage_ref(x, blocks, stride)
     for i, blk in enumerate(blocks):
         if len(blk) == 8:

@@ -16,8 +16,7 @@ from ssg_tpu_torch.ops import bottleneck as bn_mod
 from ssg_tpu_torch.ops import bottleneck_stage as stage_mod
 from ssg_tpu_torch.ops import distance as dist_mod
 from ssg_tpu_torch.ops import l1 as l1_mod
-from ssg_tpu_torch.ops.bottleneck import (bf16_ulp_error, bottleneck_ref, fused_bottleneck,
-                                          launch_block)
+from ssg_tpu_torch.ops.bottleneck import bf16_ulp_error, bottleneck_ref, fused_bottleneck
 from ssg_tpu_torch.ops.bottleneck_stage import fused_bottleneck_stage, stage_ref
 from ssg_tpu_torch.ops.distance import pairwise_distance, pairwise_distance_ref
 from ssg_tpu_torch.ops.l1 import l1_distance, l1_distance_ref
@@ -121,42 +120,55 @@ def test_bottleneck_kernel_matches_ref(gen, cuda, b, h, w, c, cm):
     assert bf16_ulp_error(out, ref) <= BF16_ULPS
 
 
-# Grids that are not a multiple of the cluster size (blocks that own no
-# pixels pad them), at the layer3 and layer4 widths and at C=40 / Cm=8, whose
-# K = C, 9 Cm and Cm straddle a 16-deep step; each with the weight chunks
-# shared across clusters and with every block fetching its own.
-@pytest.mark.parametrize("max_cluster", [4, 1])
+# Grids of 1-3 blocks, at the layer3 and layer4 widths, and C=40 / Cm=8,
+# whose K = C, 9 Cm and Cm straddle a 16-deep step of the products.
 @pytest.mark.parametrize("b,h,w,c,cm", [(1, 16, 8, 1024, 256), (3, 16, 8, 1024, 256),
                                         (1, 9, 7, 1024, 256), (3, 9, 7, 1024, 256),
                                         (1, 8, 4, 2048, 512), (3, 8, 4, 2048, 512),
                                         (3, 9, 13, 40, 8)])
-def test_bottleneck_kernel_padded_grid_matches_ref(gen, cuda, max_cluster, b, h, w, c, cm):
+def test_bottleneck_kernel_small_batch_matches_ref(gen, cuda, b, h, w, c, cm):
     x = _act(gen, (b, h, w, c), cuda)
     ws = _weights(gen, c, cm, c, False, cuda)
-    prev = bn_mod.set_max_cluster(max_cluster)
-    try:
-        launch = bn_mod.plan(b, h, w, cm)
-        out = fused_bottleneck(x, *ws)
-        torch.cuda.synchronize()
-    finally:
-        bn_mod.set_max_cluster(prev)
-    assert launch["cluster"] <= max_cluster
-    assert launch["grid"] % launch["cluster"] == 0 and launch["grid"] >= launch["blocks"]
+    out = fused_bottleneck(x, *ws)
+    torch.cuda.synchronize()
     ref = bottleneck_ref(x, *ws)
     assert bool(torch.isfinite(out.float()).all())
     assert bf16_ulp_error(out, ref) <= BF16_ULPS
 
 
-def test_bottleneck_plan_shares_weights_at_path_shapes(cuda):
-    # The identity blocks of layers 2-4 at batch 128 (256x128 input).
-    for h, w, cm in [(32, 16, 128), (16, 8, 256), (8, 4, 512)]:
-        launch = bn_mod.plan(128, h, w, cm)
-        assert launch["cluster"] > 1, launch
-        assert launch["grid"] % launch["cluster"] == 0 and launch["grid"] >= launch["blocks"]
-        assert launch["max_active_clusters"] > 0
-    # A padded grid: one layer4 image is one block.
-    launch = bn_mod.plan(3, 8, 4, 512)
-    assert launch["blocks"] == 3 and launch["grid"] == 4 == launch["cluster"]
+# fp32 blocks (the fp32 kernel, y1 and y2 through device memory) against the
+# plain version in true fp32: sums in another order, within 1e-4 of the
+# largest output. A 3-block stage also runs the downsample block.
+FP32_REL = 1e-4
+
+
+@pytest.mark.parametrize("b,h,w,c,cm", [(3, 5, 7, 32, 8), (2, 9, 13, 40, 8),
+                                        (2, 16, 8, 1024, 256), (1, 8, 4, 2048, 512)])
+def test_bottleneck_kernel_fp32_matches_ref(gen, cuda, b, h, w, c, cm):
+    x = _act(gen, (b, h, w, c), cuda).float()
+    ws = tuple(t.float() for t in _weights(gen, c, cm, c, False, cuda))
+    before = bn_mod.launches
+    out = fused_bottleneck(x, *ws)
+    torch.cuda.synchronize()
+    assert bn_mod.launches == before + 1
+    ref = bottleneck_ref(x, *ws)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    assert float((out - ref).abs().max()) <= FP32_REL * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("stride,h,w,c,cm", [(2, 9, 7, 24, 8), (1, 16, 8, 64, 16),
+                                             (2, 16, 8, 256, 128)])
+def test_stage_kernel_fp32_matches_ref(gen, cuda, stride, h, w, c, cm):
+    x = _act(gen, (2, h, w, c), cuda).float()
+    blocks = [tuple(t.float() for t in _weights(gen, cin, cm, 4 * cm, i == 0, cuda))
+              for i, cin in enumerate((c, 4 * cm, 4 * cm))]
+    before = stage_mod.launches
+    out = fused_bottleneck_stage(x, blocks, stride)
+    torch.cuda.synchronize()
+    assert stage_mod.launches == before + 3
+    ref = stage_ref(x, blocks, stride)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    assert float((out - ref).abs().max()) <= FP32_REL * float(ref.abs().max())
 
 
 @pytest.mark.parametrize("stride,h,w,c,cm", [(1, 16, 8, 16, 8), (2, 16, 8, 16, 8),
@@ -180,7 +192,7 @@ def test_bottleneck_kernel_rejects_bad_input(gen, cuda):
     x = _act(gen, (2, 4, 4, 64), cuda)
     ws = _weights(gen, 64, 16, 64, False, cuda)
     with pytest.raises(ValueError):
-        launch_block(x.float(), *ws)  # fp32 activations
+        fused_bottleneck(x.half(), *ws)  # fp16 activations
     with pytest.raises(ValueError):
         fused_bottleneck(x.permute(0, 2, 1, 3), *ws)  # not NHWC-contiguous
     with pytest.raises(ValueError):
@@ -238,21 +250,21 @@ def test_fused_eval_model_matches_unfused(cuda):
     assert float(cos.min()) >= 0.99
 
 
-def test_fused_eval_fp32_model_runs_plain_blocks(cuda):
-    # fp32 blocks take the plain version in true fp32, as the JAX op does off
-    # the TPU: no kernel launch, and each embedding within 1e-4 (relative, in
-    # norm) of the unfused model's: fp32 rounding of the fold.
+def test_fused_eval_fp32_model_matches_unfused(cuda):
+    # fp32 blocks run the fp32 kernel (the model in NCHW: each block copies
+    # its input to NHWC once); each embedding within 1e-4 (relative, in norm)
+    # of the unfused fp32 model's: fp32 rounding of the fold.
     kw = dict(num_features=0, num_parts=3, dtype=torch.float32)
     plain = models.create("resnet50", **kw).reset_parameters(torch.Generator().manual_seed(0))
     fused = models.create("resnet50", fused_eval=True, **kw)
     fused.load_state_dict(plain.state_dict())
     plain, fused = plain.eval().to(cuda), fused.eval().to(cuda)
     x = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 256, 128, 3)).astype(np.float32))
-    before = (bn_mod.launches, stage_mod.launches)
+    before = bn_mod.launches
     with torch.no_grad():
         a = plain(x.to(cuda))
         b = fused(x.to(cuda))
     torch.cuda.synchronize()
-    assert (bn_mod.launches, stage_mod.launches) == before
+    assert bn_mod.launches == before + 12  # the 12 identity blocks of ResNet-50
     assert a.dtype == b.dtype == torch.float32 and bool(torch.isfinite(b).all())
     assert float(((a - b).norm(dim=-1) / a.norm(dim=-1)).max()) <= 1e-4
