@@ -24,8 +24,13 @@ Each chunk arrives by
   32 rows x 128 bf16 columns of a (rows, 512) matrix, unswizzled;
 * ``bulk chunk, producer warp``: one 8 KB bulk copy, issued by a warp that
   only produces (it waits on the empty barriers and copies), while the
-  other 7 warps only consume. In every other case the copying threads also
-  consume, in the same loop.
+  other 7 warps only consume;
+* ``bulk rows, producer warp``: the same, with the chunk as 32 bulk copies
+  of 256 bytes at padded offsets, one a lane (what a producer warp would
+  issue for the bottleneck kernel's padded weight layout);
+* ``tensor-map box, producer warp``: the tensor-map box above, issued by a
+  warp that only produces.
+In the first four cases the copying threads also consume, in the same loop.
 
 It prints the device time of each case and the rate at which one block
 takes in its chunks, with 1 block an SM (132 blocks) and, where two fit, 2
@@ -98,7 +103,9 @@ constexpr int SLOT = CHUNK + 512;  // 32 rows of 256 B, each padded by 16 B
 
 // mode 0: cp.async; mode 1: 32 bulk copies of 256 B; mode 2: one of 8 KB;
 // mode 3: one tensor-map box of 32 rows x 128 bf16 columns of src viewed as
-// (span / 1024, 512) bf16; mode 4: as 2, issued by warp 0, which only produces.
+// (span / 1024, 512) bf16; mode 4: as 2, issued by warp 0, which only produces;
+// mode 5: as 1, all 32 copies issued by warp 0, which only produces; mode 6:
+// as 3, issued by warp 0, which only produces.
 __global__ void __launch_bounds__(256) ring(const __grid_constant__ CUtensorMap map,
                                             const char* __restrict__ src, long span, int chunks,
                                             int stages, int mode, unsigned* sink) {
@@ -110,7 +117,7 @@ __global__ void __launch_bounds__(256) ring(const __grid_constant__ CUtensorMap 
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
       bar_init(full + s, 1);
-      bar_init(empty + s, mode == 4 ? 7 : 8);
+      bar_init(empty + s, mode >= 4 ? 7 : 8);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -148,20 +155,35 @@ __global__ void __launch_bounds__(256) ring(const __grid_constant__ CUtensorMap 
     }
   };
   unsigned acc = 0;
-  if (mode == 4) {
+  if (mode >= 4) {
     if (warp == 0) {
-      for (int c = 0; lane == 0 && c < chunks; ++c) {
+      for (int c = 0; mode == 4 && lane == 0 && c < chunks; ++c) {
         const int slot = c % stages;
         if (c >= stages) wait(empty + slot, (c / stages - 1) & 1);
         expect_tx(full + slot, CHUNK);
         bulk(smem + slot * SLOT, src + (first + static_cast<long>(c) * CHUNK) % span, CHUNK,
              full + slot);
       }
+      for (int c = 0; mode == 5 && c < chunks; ++c) {
+        const int slot = c % stages;
+        if (c >= stages) wait(empty + slot, (c / stages - 1) & 1);
+        if (lane == 0) expect_tx(full + slot, CHUNK);
+        bulk(smem + slot * SLOT + lane * 272,
+             src + (first + static_cast<long>(c) * CHUNK) % span + lane * 256, 256, full + slot);
+      }
+      for (int c = 0; mode == 6 && lane == 0 && c < chunks; ++c) {
+        const int slot = c % stages;
+        if (c >= stages) wait(empty + slot, (c / stages - 1) & 1);
+        expect_tx(full + slot, CHUNK);
+        box(smem + slot * SLOT, &map, (c % 4) * 128,
+            ((blockIdx.x * 7 + c / 4) * 32) % (static_cast<int>(span / 1024) - 32), full + slot);
+      }
       return;
     }
     for (int c = 0; c < chunks; ++c) {
       const int slot = c % stages;
-      wait(full + slot, (c / stages) & 1);
+      if (mode == 6) wait_guarded(full + slot, (c / stages) & 1);
+      else wait(full + slot, (c / stages) & 1);
       acc += *reinterpret_cast<volatile unsigned*>(smem + slot * SLOT + (tid * 32) % CHUNK);
       __syncwarp();
       if (lane == 0) arrive(empty + slot);
@@ -194,7 +216,7 @@ extern "C" int bench_ring(const void* src, long span, int chunks, int stages, in
   cudaError_t err = cudaFuncSetAttribute(ring, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   CUtensorMap map = {};
-  if (mode == 3) {
+  if (mode == 3 || mode == 6) {
     const cuuint64_t dims[2] = {512, static_cast<cuuint64_t>(span / 1024)};
     const cuuint64_t strides[1] = {1024};
     const cuuint32_t box_dims[2] = {128, 32};
@@ -217,7 +239,8 @@ extern "C" int bench_ring(const void* src, long span, int chunks, int stages, in
 
 CHUNKS = 1088
 MODES = {0: "cp.async 16 B a thread", 1: "bulk rows, 32 x 256 B", 2: "bulk chunk, 1 x 8 KB",
-         3: "tensor-map box, 32 x 128 bf16", 4: "bulk chunk, producer warp"}
+         3: "tensor-map box, 32 x 128 bf16", 4: "bulk chunk, producer warp",
+         5: "bulk rows, producer warp", 6: "tensor-map box, producer warp"}
 
 
 def build() -> ctypes.CDLL:

@@ -21,9 +21,9 @@ ways — whole map, upper half, lower half — each with its own head.
   bottleneck (stride 1, ``cin == 4 * features``) folds its BatchNorms into
   the conv weights and runs ``ops.bottleneck.fused_bottleneck`` (the CUDA
   kernels on the card, bf16 or fp32). Those blocks keep their conv weights
-  in fp32, as Flax keeps its parameters, and fold from them: folding a bf16-stored
-  weight would round twice. Other convs are stored in ``dtype``; train
-  mode casts the fp32 masters to ``dtype`` at each conv.
+  in fp32, as Flax keeps its parameters, and fold from them: folding a
+  bf16-stored weight would round twice. Other convs are stored in
+  ``dtype``; train mode casts the fp32 masters to ``dtype`` at each conv.
 
 The JAX package's space-to-depth stem is an exact TPU rewrite of the 7x7
 conv and is not ported.
