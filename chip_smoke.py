@@ -87,11 +87,11 @@ STAGES = (("layer1", 3, 1), ("layer2", 4, 2), ("layer3", 6, 2), ("layer4", 3, 2)
 # Identity blocks at the path shapes (batch 128): (name, H, W, C, Cm, blocks a batch).
 IDENTITY = (("layer1", 64, 32, 256, 64, 2), ("layer2", 32, 16, 512, 128, 3),
             ("layer3", 16, 8, 1024, 256, 5), ("layer4", 8, 4, 2048, 512, 2))
-# The bottleneck kernel's times at the path shapes in PERF.md (H100 80GB
-# HBM3, 700 W, PR 2): one identity block a layer; a batch's 12 identity
-# blocks and four stages.
-PR2_BLOCK_MS = {"layer1": 0.623, "layer2": 0.413, "layer3": 0.376, "layer4": 0.667}
-PR2_BATCH_MS = {"fused_bottleneck": 5.701, "fused_bottleneck_stage": 10.217}
+# The bottleneck kernel's times at the path shapes as PERF.md records them
+# for this version of it (H100 80GB HBM3, 700 W): one identity block a
+# layer; a batch's 12 identity blocks and four stages.
+RECORDED_BLOCK_MS = {"layer1": 0.623, "layer2": 0.413, "layer3": 0.376, "layer4": 0.667}
+RECORDED_BATCH_MS = {"fused_bottleneck": 5.701, "fused_bottleneck_stage": 10.217}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -320,7 +320,7 @@ def capture_stage_inputs(model, batch) -> dict:
 
 
 def time_blocks(name: str, x, blocks, stride: int, kernel_fn, plain_fn, counter,
-                pr2_ms: float | None = None) -> dict:
+                recorded_ms: float | None = None) -> dict:
     """Check a run of folded blocks on ``x`` against its plain version, then
     time the kernel, the plain version and the eager cuDNN form."""
     out = kernel_fn()
@@ -340,7 +340,7 @@ def time_blocks(name: str, x, blocks, stride: int, kernel_fn, plain_fn, counter,
     library_ms = cuda_ms(lambda: library(x), 10)
     bound_ms, bound_by = blocks_bound_ms(tuple(x.shape), blocks, stride)
     print(f"{name} {tuple(x.shape)}: {ulps:.0f} ulps (abs {abs_err:.3g}; cuDNN form {lib_ulps:.0f}"
-          f" ulps), kernel {kernel_ms:.3f} ms{'' if pr2_ms is None else f' (PR 2: {pr2_ms:.3f})'}, "
+          f" ulps), kernel {kernel_ms:.3f} ms{'' if recorded_ms is None else f' (recorded: {recorded_ms:.3f})'}, "
           f"plain {plain_ms:.3f} ms, eager cuDNN "
           f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
           f"{bound_ms / kernel_ms:.1%} of bound")
@@ -362,7 +362,7 @@ def check_blocks_at_path_shapes(model, fused, batch) -> tuple[dict, dict]:
         blk = layer[1].folded(torch.bfloat16)
         r = time_blocks(f"{name} identity block", x, [blk], 1,
                         lambda: fused_bottleneck(x, *blk), lambda: bottleneck_ref(x, *blk),
-                        lambda: bottleneck.launches, PR2_BLOCK_MS[name])
+                        lambda: bottleneck.launches, RECORDED_BLOCK_MS[name])
         per_block.append((depth - 1, r))
         x0 = inputs[(name, 0)]
         blocks = [b.folded(torch.bfloat16) for b in layer]
@@ -388,7 +388,7 @@ def check_blocks_at_path_shapes(model, fused, batch) -> tuple[dict, dict]:
 
     rows = {"fused_bottleneck": total(per_block), "fused_bottleneck_stage": total(per_stage)}
     for op, r in rows.items():
-        print(f"{op} per batch: kernel {r['ms']:.3f} ms (PR 2: {PR2_BATCH_MS[op]:.3f}), eager "
+        print(f"{op} per batch: kernel {r['ms']:.3f} ms (recorded: {RECORDED_BATCH_MS[op]:.3f}), eager "
               f"cuDNN {r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms, "
               f"{r['bound_ms'] / r['ms']:.1%} of bound")
     return rows["fused_bottleneck"], rows["fused_bottleneck_stage"]

@@ -16,9 +16,8 @@ Each chunk arrives by
   barrier a chunk (the bottleneck kernel's weight stream);
 * ``bulk rows``: 32 bulk copies of 256 bytes (a K row of a 128-column
   weight tile), 4 a warp, completed on the slot's mbarrier, released by
-  each warp on an empty mbarrier (the weight stream of a cluster version
-  of the bottleneck kernel that was tried and not kept, with one block a
-  cluster);
+  each warp on an empty mbarrier (the weight stream of a cluster design
+  of the bottleneck kernel, with one block a cluster);
 * ``bulk chunk``: one bulk copy of 8 KB;
 * ``tensor-map box``: one 2-D tensor-map copy of the same 8 KB as a box of
   32 rows x 128 bf16 columns of a (rows, 512) matrix, unswizzled;
