@@ -8,8 +8,11 @@ never accumulated in a narrower type.
   is ``torch.matmul`` in true fp32 (TF32 off, ``_device.py``), matching its
   ``Precision.HIGHEST`` GEMM.
 * ``impl="kernel"`` is its opt-in Pallas kernel (``impl="pallas"``): on the
-  card the hand-written CUDA kernel ``csrc/distance.cu``, which fuses the
-  norms into the product's K loop; on the CPU the plain version.
+  card the hand-written CUDA kernel ``csrc/distance.cu`` (3xTF32 products
+  on the tensor cores, fp32-accurate, with the norms fused into the K
+  loop); on the CPU the plain version. When ``y`` is omitted or is ``x``
+  itself, the kernel computes each pair once and mirrors it, so the output
+  is exactly symmetric.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ def _kernel():
     if _fn is None:
         fn = _build.load("distance").ssg_pairwise_distance
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6
-                       + [ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -51,25 +54,7 @@ def pairwise_distance_ref(x: torch.Tensor, y: torch.Tensor | None = None,
 
 def _distance_cuda(x: torch.Tensor, y: torch.Tensor, squared: bool) -> torch.Tensor:
     global launches
-    for name, t in (("x", x), ("y", y)):
-        if t.device.type != "cuda" or t.dtype != torch.float32 or t.dim() != 2:
-            raise ValueError(f"pairwise_distance: {name} must be a 2-D fp32 CUDA tensor, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"pairwise_distance: {name} must be contiguous")
-    if x.device != y.device or x.shape[1] != y.shape[1]:
-        raise ValueError(f"pairwise_distance: x {tuple(x.shape)} on {x.device} and "
-                         f"y {tuple(y.shape)} on {y.device} do not match")
-    m, d = x.shape
-    n = y.shape[0]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    fn = _kernel()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, d,
-                 x.stride(0), y.stride(0), out.stride(0), int(squared), stream)
-    if err != 0:
-        raise RuntimeError(f"pairwise_distance: kernel launch failed with CUDA error {err}")
+    out = _build.launch_pairwise(_kernel(), "pairwise_distance", x, y, int(squared))
     launches += 1
     return out
 

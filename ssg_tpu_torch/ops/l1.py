@@ -4,7 +4,10 @@ Counterpart of ``ssg_tpu/ops/l1.py``. With row sums S of the sparse
 encoding V, ``sum_k min(V_ik, V_jk) = (S_i + S_j - ||V_i - V_j||_1) / 2``
 (see ops/rerank.py). On the card the distance is the hand-written CUDA
 kernel ``csrc/l1.cu``; ``l1_distance_ref`` is its plain PyTorch version,
-which the CPU runs and which the kernel is held against on the card.
+which the CPU runs and which the kernel is held against on the card. When
+``y`` is omitted or is ``x`` itself (every call of the re-ranking), the
+kernel computes each pair once and mirrors it, so the output is exactly
+symmetric.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("l1").ssg_l1_distance
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6
+                       + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -46,25 +50,7 @@ def l1_distance_ref(x: torch.Tensor, y: torch.Tensor | None = None,
 
 def _l1_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     global launches
-    for name, t in (("x", x), ("y", y)):
-        if t.device.type != "cuda" or t.dtype != torch.float32 or t.dim() != 2:
-            raise ValueError(f"l1_distance: {name} must be a 2-D fp32 CUDA tensor, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"l1_distance: {name} must be contiguous")
-    if x.device != y.device or x.shape[1] != y.shape[1]:
-        raise ValueError(f"l1_distance: x {tuple(x.shape)} on {x.device} and "
-                         f"y {tuple(y.shape)} on {y.device} do not match")
-    m, d = x.shape
-    n = y.shape[0]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    fn = _kernel()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, d,
-                 x.stride(0), y.stride(0), out.stride(0), stream)
-    if err != 0:
-        raise RuntimeError(f"l1_distance: kernel launch failed with CUDA error {err}")
+    out = _build.launch_pairwise(_kernel(), "l1_distance", x, y)
     launches += 1
     return out
 

@@ -1,0 +1,63 @@
+"""The bound arithmetic of ``chip_smoke.py``, at the path size N = 3368.
+
+A kernel's share of its bound is read against these numbers, so they are
+pinned here on the CPU: the pairs a call needs (N(N+1)/2 when y is x), the
+L1's two fp32 instructions a pair and element, and the distance's products
+on the fp32 FMA pipes or as three TF32 tensor-core products (3xTF32).
+``chip_smoke.py`` is loaded by its path from the repository root.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+N = 3368
+D = 2048  # the distance's feature width on the path
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("m,n,symmetric,expected", [
+    (N, N, False, N * N), (N, N, True, 5_673_396), (1, 1, True, 1), (5, 5, True, 15),
+    (5, 7, False, 35)])
+def test_pairs(smoke, m, n, symmetric, expected):
+    assert smoke.pairs(m, n, symmetric) == expected
+    if symmetric:
+        assert expected == m * (m + 1) // 2
+
+
+@pytest.mark.parametrize("symmetric,ms", [(False, 2.284), (True, 1.142)])
+def test_l1_bound(smoke, symmetric, ms):
+    bound, by = smoke.l1_bound_ms(N, N, N, symmetric=symmetric)
+    ops = 2.0 * smoke.pairs(N, N, symmetric) * N
+    assert by == "operations"
+    assert bound == pytest.approx(ops / smoke.FP32_NON_FMA_PER_S * 1e3, rel=1e-12)
+    assert bound == pytest.approx(ms, abs=1e-3)
+
+
+@pytest.mark.parametrize("symmetric,route,ms", [
+    (False, "fma", 0.693), (True, "fma", 0.347), (True, "3xtf32", 0.141),
+    (False, "3xtf32", 0.282)])
+def test_distance_bound(smoke, symmetric, route, ms):
+    bound, by = smoke.dist_bound_ms(N, N, D, symmetric=symmetric, route=route)
+    flop = 2.0 * smoke.pairs(N, N, symmetric) * D
+    expected = flop / 67e12 if route == "fma" else 3 * flop / 495e12
+    assert by == "operations"
+    assert bound == pytest.approx(expected * 1e3, rel=1e-12)
+    assert bound == pytest.approx(ms, abs=1e-3)
+
+
+def test_bounds_by_bytes(smoke):
+    # One feature: nothing to compute, the output's bytes set the bound.
+    bound, by = smoke.l1_bound_ms(N, N, 1, symmetric=True)
+    assert by == "bytes"
+    assert bound == pytest.approx(4.0 * (N + N * N) / smoke.HBM_BYTES_PER_S * 1e3)
+    assert smoke.dist_bound_ms(N, N, 1, symmetric=True)[1] == "bytes"

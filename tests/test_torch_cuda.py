@@ -36,9 +36,11 @@ def gen():
     return np.random.default_rng(0)
 
 
-# Ragged against the kernel's 64x64 output tile and 32-wide K slab.
+# General calls (y given), ragged against the kernel's 128-, 64- and 32-row
+# units (the last shape is large enough for 128), its 64-wide column units
+# and its 32-wide K slab.
 @pytest.mark.parametrize("m,n,d", [(70, 33, 150), (5, 7, 3), (129, 64, 65), (1, 1, 1),
-                                   (1000, 333, 777)])
+                                   (1000, 333, 777), (2100, 2000, 70)])
 def test_l1_kernel_matches_ref(gen, cuda, m, n, d):
     x = torch.from_numpy(gen.normal(size=(m, d)).astype(np.float32)).to(cuda)
     y = torch.from_numpy(gen.normal(size=(n, d)).astype(np.float32)).to(cuda)
@@ -50,6 +52,38 @@ def test_l1_kernel_matches_ref(gen, cuda, m, n, d):
     # fp32 sums in another order: 1e-5 of the row-sum scale.
     scale = float(x.abs().sum(1).max() + y.abs().sum(1).max())
     assert float((out - ref).abs().max()) <= 1e-5 * scale
+
+
+# Symmetric calls (y omitted): ragged against the 128- and 64-row tiles, the
+# 64-wide column units and the 32-wide K slab. The kernel computes the upper
+# triangle and mirrors it; every output sums its k in order, as the general
+# path does, so the two give the same bits.
+@pytest.mark.parametrize("n,d", [(1, 1), (5, 3), (65, 33), (130, 150), (1000, 777),
+                                 (1283, 130)])
+def test_l1_kernel_symmetric(gen, cuda, n, d):
+    x = torch.from_numpy(gen.normal(size=(n, d)).astype(np.float32)).to(cuda)
+    before = l1_mod.launches
+    out = l1_distance(x)
+    torch.cuda.synchronize()
+    assert l1_mod.launches == before + 1
+    assert torch.equal(out, out.T)
+    ref = l1_distance_ref(x)
+    assert float((out - ref).abs().max()) <= 1e-5 * 2 * float(x.abs().sum(1).max())
+    assert torch.equal(out, l1_distance(x, x.clone()))  # the general path
+
+
+def test_l1_kernel_v_like(gen, cuda):
+    # The re-ranking's operand: sparse, non-negative, rows summing to 1.
+    n = 700
+    v = np.zeros((n, n), np.float32)
+    rows = np.repeat(np.arange(n), 40)
+    np.add.at(v, (rows, gen.integers(0, n, rows.size)), gen.random(rows.size).astype(np.float32))
+    v /= v.sum(1, keepdims=True)
+    x = torch.from_numpy(v).to(cuda)
+    out = l1_distance(x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out.T)
+    assert float((out - l1_distance_ref(x)).abs().max()) <= 1e-5 * 2
 
 
 def test_l1_kernel_rejects_bad_input(cuda):
@@ -218,6 +252,30 @@ def test_distance_kernel_matches_ref(gen, cuda, m, n, d, squared):
     # square root for plain distances).
     scale = float((x * x).sum(1).max() + (y * y).sum(1).max())
     assert float((out - ref).abs().max()) <= 1e-5 * (scale if squared else scale ** 0.5)
+
+
+# Symmetric calls (y omitted), ragged against the 128-square tile and the
+# 32-wide K slab: the output is exactly symmetric and within the tolerance
+# above. Plain distances off the diagonal likewise; on it, |x|^2 + |x|^2 -
+# 2 x.x cancels to an fp32 residue that sqrt magnifies, so only near 0.
+@pytest.mark.parametrize("n,d", [(1, 1), (5, 3), (65, 65), (130, 2048), (1000, 777),
+                                 (1283, 130)])
+@pytest.mark.parametrize("squared", [True, False])
+def test_distance_kernel_symmetric(gen, cuda, n, d, squared):
+    x = torch.from_numpy(gen.normal(size=(n, d)).astype(np.float32)).to(cuda)
+    before = dist_mod.launches
+    out = pairwise_distance(x, squared=squared, impl="kernel")
+    torch.cuda.synchronize()
+    assert dist_mod.launches == before + 1
+    assert torch.equal(out, out.T)
+    ref = pairwise_distance_ref(x, squared=squared)
+    scale = 2 * float((x * x).sum(1).max())
+    if squared:
+        assert float((out - ref).abs().max()) <= 1e-5 * scale
+    else:
+        off = ~torch.eye(n, dtype=torch.bool, device=cuda)
+        assert float((out - ref).masked_fill(~off, 0).abs().max()) <= 1e-5 * scale ** 0.5
+        assert float(out.diagonal().abs().max()) <= 1e-2 * scale ** 0.5
 
 
 def test_distance_kernel_rejects_bad_input(cuda):

@@ -20,6 +20,7 @@ from ssg_tpu.ops.topk import exact_min_k as jax_min_k
 from ssg_tpu.oracle import dbscan_np, pairwise_distance_np, re_ranking_np, select_eps_np
 
 from ssg_tpu_torch.cluster import dbscan, select_eps
+from ssg_tpu_torch.ops import _build
 from ssg_tpu_torch.ops import distance as dist_mod
 from ssg_tpu_torch.ops import l1 as l1_mod
 from ssg_tpu_torch.ops.distance import pairwise_distance
@@ -100,6 +101,16 @@ def test_pairwise_distance_kernel_impl(rng, m, n, d, squared):
     atol = 1e-6 * scale if squared else 1e-3 * scale ** 0.5
     np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=atol)
     np.testing.assert_allclose(ours, kern, rtol=1e-5, atol=atol)
+
+
+def test_same_operand():
+    # The kernels' symmetric case is decided from the call: y is x itself.
+    x = torch.ones((4, 3))
+    assert _build.same_operand(x, x)
+    assert _build.same_operand(x, x.view(4, 3))  # another view of the same memory
+    assert not _build.same_operand(x, x.clone())
+    assert not _build.same_operand(x, x[:2])
+    assert not _build.same_operand(x[:, :2], x[:, 1:])
 
 
 def test_pairwise_distance_unknown_impl():
