@@ -16,7 +16,13 @@ DBSCAN (min_samples=4):
   the CUDA L1 kernel in the re-ranking;
 * path 2, fused-eval: the same weights with ``fused_eval=True``, whose 12
   identity bottlenecks run the CUDA bottleneck kernel, then the analytics
-  with the CUDA distance kernel (``dist_impl="kernel"``).
+  with the CUDA distance kernel (``dist_impl="kernel"``);
+* path 3, fine-tuning (``train_phases``): T1, one fp32 train step of
+  ResNet-50 at full width (batch 8) on the card against the same step on
+  the CPU; T2, the bf16 train step at batch 64 (P 16 x K 4), timed; T3,
+  ``api.train`` (``run_ssg``) for two iterations on synthetic DukeMTMC at
+  scale 0.2 (1120 train images), the second resumed from the first's
+  checkpoint, its ``cluster_groups`` launching the CUDA L1 kernel.
 
 It checks them:
 
@@ -38,18 +44,26 @@ It checks them:
 5. times each kernel, its plain version and the nearest PyTorch library
    form, at the path shapes, beside the least time the card could take
    for the call's work (a symmetric call needs N(N+1)/2 pairs; the
-   bottleneck also beside its times in PERF.md).
+   bottleneck also beside its times in PERF.md);
+6. runs path 3 and checks it: T1's loss and gradients against the CPU, T2's
+   loss falling on its repeated batch, T3's finite losses, training in each
+   iteration, the reloaded checkpoint's embeddings (bit for bit) and the
+   optimizer state restored on resume.
 
-Any failed check ends the run with a nonzero exit. The last three lines are
-the kernels' JSON, the card's name and power limit from ``nvidia-smi``, and
-``{"ok": true, "device": {...}}``.
+Any failed check ends the run with a nonzero exit. The last four lines are
+path 3's ``train`` JSON, the kernels' JSON, the card's name and power limit
+from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import copy
 import json
+import os
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -59,12 +73,16 @@ import torch.nn.functional as F
 
 from ssg_tpu_torch import api, models, resolve_device
 from ssg_tpu_torch.cluster import dbscan, select_eps
-from ssg_tpu_torch.data import Preprocessor, datasets
+from ssg_tpu_torch.data import Preprocessor, datasets, transforms
 from ssg_tpu_torch.ops import _build, bottleneck, bottleneck_stage, distance, l1
 from ssg_tpu_torch.ops.bottleneck import bf16_ulp_error, bottleneck_ref, fused_bottleneck
 from ssg_tpu_torch.ops.bottleneck_stage import fused_bottleneck_stage, stage_ref
 from ssg_tpu_torch.ops.distance import pairwise_distance, pairwise_distance_ref
 from ssg_tpu_torch.ops.rerank import _encode, _re_ranking_impl
+from ssg_tpu_torch.train.schedule import make_optimizer
+from ssg_tpu_torch.train.ssg_loop import SSGConfig
+from ssg_tpu_torch.train.trainer import make_train_step
+from ssg_tpu_torch.utils import load_checkpoint
 
 N = 3368
 BATCH = 128
@@ -432,13 +450,13 @@ def fused_eval_path(fused, batches, feats, labels, counts) -> dict:
     """Path 2: the fused-eval extract, then its analytics, timed and checked
     against path 1's embeddings and labels. Returns the launch counts of the
     bottleneck kernel and of the stage op in the timed extract."""
-    f2, _, _ = api.extract_features(fused, batches)  # warm-up: kernel load, fold cache
+    f2, _, _, _ = api.extract_features(fused, batches)  # warm-up: kernel load, fold cache
     api.cluster_groups(f2, **ANALYTICS)
     torch.cuda.synchronize()
 
     bottleneck.launches = bottleneck_stage.launches = 0
     t0 = time.perf_counter()
-    f2, _, _ = api.extract_features(fused, batches)
+    f2, _, _, _ = api.extract_features(fused, batches)
     torch.cuda.synchronize()
     extract_s = time.perf_counter() - t0
     launches = bottleneck.launches
@@ -652,6 +670,270 @@ def distance_kernel_path(feats, labels, counts, epss) -> dict:
                 bound_by=bound_by, fma_sym_ms=fma_sym_ms, fma_dense_ms=fma_dense_ms)
 
 
+def check_operand_conversion(dev: torch.device) -> None:
+    """The all-pairs wrappers take operands as JAX does: a strided view and a
+    bf16 one are converted to contiguous fp32 once, a view against itself is
+    still the symmetric launch (exactly symmetric output), and the result
+    equals the kernel on the converted operand."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    strided = torch.randn((700, 260), generator=gen, device=dev)[::2, 1::2]  # (350, 130)
+    calls = (("l1_distance", l1, lambda a: l1.l1_distance(a)),
+             ("pairwise_distance", distance, lambda a: pairwise_distance(a, impl="kernel")))
+    for name, mod, fn in calls:
+        for label, x in (("strided", strided), ("bf16 strided", strided.to(torch.bfloat16))):
+            before = mod.launches
+            out = fn(x)
+            ref = fn(x.float().contiguous())
+            torch.cuda.synchronize()
+            check(mod.launches - before == 2, f"{name} {label}: kernel not launched")
+            check(torch.equal(out, out.T), f"{name} {label}: the symmetric launch was lost")
+            check(torch.equal(out, ref), f"{name} {label}: differs from the converted operand")
+            print(f"{name} on a {label} {tuple(x.shape)} operand: converted, symmetric, "
+                  "equal to the contiguous fp32 call")
+
+
+# Path 3, fine-tuning at full width: ResNet-50 on 256x128 crops, 3 parts.
+TRAIN_H, TRAIN_W = 256, 128
+T1_LOSS_REL = 1e-4  # fp32 card step against the CPU: sums in another order
+T1_GRAD_REL = 1e-3  # of a tensor's largest |g|, beside twice the CPU's own error
+# T3: the random-weight features form a few dozen whole-body clusters of the
+# 1120 images whatever rho, 1-2 P x K batches of 64 an epoch, so rho cannot
+# buy 10 steps in one epoch. SSG's own rho keeps both iterations above the
+# 16 clusters a batch of 64 needs (after the first iteration's training a
+# larger rho merges them below that); 10 epochs give iteration 0 10 steps.
+T3_RHO = 1.6e-3
+T3_EPOCHS = 10
+
+
+def pk_batch(ds, p: int, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K rendered images of each of the first P train identities, uint8 on
+    the host, and their labels (3, P K), the same for every part."""
+    by_pid = {}
+    for fname, pid, _ in ds.train:
+        by_pid.setdefault(pid, []).append(fname)
+    pids = sorted(by_pid)[:p]
+    images = torch.from_numpy(ds.render([f for pid in pids for f in by_pid[pid][:k]]))
+    return images, torch.arange(p).repeat_interleave(k)[None].repeat(3, 1)
+
+
+def forward_flops(model, x: torch.Tensor) -> float:
+    """Operations of one forward of ``model`` on ``x``, from its convolution
+    and linear shapes (2 per multiply-add)."""
+    total = 0.0
+
+    def hook(mod, args, out):
+        nonlocal total
+        if isinstance(mod, torch.nn.Conv2d):
+            kh, kw = mod.kernel_size
+            total += 2.0 * out.numel() * mod.in_channels // mod.groups * kh * kw
+        else:
+            total += 2.0 * out.numel() * mod.in_features
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    with torch.no_grad():
+        model.eval()(x)
+    for h in hooks:
+        h.remove()
+    return total
+
+
+def t1_step_parity(dev: torch.device, ds) -> dict:
+    """T1: one fp32 train step of ResNet-50 at full width (dropout 0, batch 8
+    = P 2 x K 4, 256x128, the same crops and flips from one ``draw_crops``)
+    on the card and on the CPU from the same weights: the loss, and every
+    parameter's gradient against the same step in fp64.
+
+    At random initialisation, with BatchNorm normalising 8 images, the
+    network amplifies fp32 rounding by orders of magnitude in the gradients,
+    so two correct fp32 steps do not agree to 1e-3 of a tensor's largest
+    gradient. The yardstick is the CPU's own fp32 error against fp64: the
+    card's worst error over all tensors must stay within twice the CPU's
+    worst (plus 1e-3), so a card step that computed something else, or in
+    TF32, fails."""
+    model = models.create("resnet50", num_features=0, num_parts=3, dtype=torch.float32)
+    model.reset_parameters(torch.Generator().manual_seed(1))
+    exact = copy.deepcopy(model).double()
+    exact.dtype = torch.float64
+    on_cpu = copy.deepcopy(model)
+    images, labels = pk_batch(ds, 2, 4)
+    boxes, flips = transforms.draw_crops(torch.Generator(device=dev).manual_seed(1), 8,
+                                         *images.shape[1:3])
+    out = {}
+    for name, m, d in (("card", model, dev), ("cpu", on_cpu, torch.device("cpu")),
+                       ("fp64", exact, dev)):
+        m.to(d, memory_format=torch.channels_last)
+        step = make_train_step(m, make_optimizer(m.parameters(), 6e-5), num_parts=3,
+                               height=TRAIN_H, width=TRAIN_W)
+        t0 = time.perf_counter()
+        metrics = step(images.to(d), labels.to(d), crops=(boxes.to(d), flips.to(d)))
+        loss = float(metrics["loss"])
+        out[name] = (loss, {k: p.grad.detach().double().cpu() for k, p in m.named_parameters()},
+                     time.perf_counter() - t0)
+    (loss_card, g_card, s_card), (loss_cpu, g_cpu, s_cpu), (loss_64, g_64, _) = (
+        out["card"], out["cpu"], out["fp64"])
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    # The triplet loss does not move when every embedding shifts alike, so
+    # the part BNs' bias gradients are 0 up to rounding: every tensor's
+    # scale is floored at 1e-3 of the largest gradient.
+    floor = 1e-3 * max(float(g.abs().max()) for g in g_64.values())
+
+    def errors(g):
+        return {k: float((g[k] - ref).abs().max()) / max(float(ref.abs().max()), floor)
+                for k, ref in g_64.items()}
+
+    err_card, err_cpu, card_cpu = errors(g_card), errors(g_cpu), {
+        k: float((g_card[k] - g).abs().max()) / max(float(g.abs().max()), floor)
+        for k, g in g_cpu.items()}
+    worst = {name: max(e.items(), key=lambda kv: kv[1])
+             for name, e in (("card", err_card), ("cpu", err_cpu), ("card_vs_cpu", card_cpu))}
+    print(f"T1 fp32 step, ResNet-50 batch 8 at 256x128: loss card {loss_card:.7f}, cpu "
+          f"{loss_cpu:.7f} (rel {loss_rel:.2e}), fp64 {loss_64:.7f}; worst gradient error of "
+          f"a tensor's max |g| ({len(g_64)} tensors): card against fp64 {worst['card'][1]:.3e} "
+          f"({worst['card'][0]}), CPU against fp64 {worst['cpu'][1]:.3e} ({worst['cpu'][0]}), "
+          f"card against CPU {worst['card_vs_cpu'][1]:.3e} ({worst['card_vs_cpu'][0]}); step "
+          f"{s_card:.2f} s card (first, cold), {s_cpu:.2f} s CPU")
+    check(np.isfinite(loss_card) and loss_rel <= T1_LOSS_REL,
+          f"T1: the card's loss {loss_card} is not the CPU's {loss_cpu}")
+    # Over all tensors: which tensor is worst, and by how much, varies from
+    # one correct fp32 step to another.
+    check(worst["card"][1] <= 2.0 * worst["cpu"][1] + T1_GRAD_REL,
+          f"T1: the card's gradients are {worst['card'][1]:.2e} from fp64 "
+          f"({worst['card'][0]}), the CPU's {worst['cpu'][1]:.2e}")
+    return {"loss_card": loss_card, "loss_cpu": loss_cpu, "loss_fp64": loss_64,
+            "loss_rel": loss_rel, "worst_grad_err_card": worst["card"][1],
+            "worst_grad_err_cpu": worst["cpu"][1], "worst_grad_card_vs_cpu": worst["card_vs_cpu"][1]}
+
+
+def t2_train_step(dev: torch.device, ds) -> dict:
+    """T2: the bf16 train step (fp32 masters) of ResNet-50 at batch 64 = P 16
+    x K 4, 3 parts, on a repeated batch already on the card: 5 warm-up and
+    20 timed steps, each between CUDA events; the loss must fall."""
+    model = models.create("resnet50", num_features=0, num_parts=3, dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to(dev, memory_format=torch.channels_last)
+    images, labels = pk_batch(ds, 16, 4)
+    images, labels = images.to(dev), labels.to(dev)
+    flop = 3.0 * forward_flops(model, transforms.test_transform(images))  # forward + backward
+    # lr 1e-3 as the JAX package's own learning-signal test; the time of a
+    # step does not depend on it.
+    step = make_train_step(model, make_optimizer(model.parameters(), 1e-3), num_parts=3,
+                           height=TRAIN_H, width=TRAIN_W)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    losses = [step(images, labels, gen)["loss"] for _ in range(5)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(20)]
+    t0 = time.perf_counter()
+    for start, end in events:
+        start.record()
+        losses.append(step(images, labels, gen)["loss"])
+        end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(events)
+    device_ms = statistics.median(s.elapsed_time(e) for s, e in events)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in losses]
+    share = flop / (device_ms * 1e-3) / BF16_FLOP_PER_S
+    r = {"train_step_ms": device_ms, "host_ms_per_step": host_ms,
+         "imgs_per_s": 64 / (host_ms * 1e-3), "peak_gib": peak_gib, "tflop_per_step": flop / 1e12,
+         "bf16_peak_share": share, "bound_ms": flop / BF16_FLOP_PER_S * 1e3,
+         "loss_first5": float(np.mean(losses[:5])), "loss_last5": float(np.mean(losses[-5:]))}
+    print(f"T2 bf16 step, ResNet-50 batch 64 (P 16 x K 4) at 256x128: median {device_ms:.3f} ms "
+          f"on the card (CUDA events), {host_ms:.3f} ms on the host clock, "
+          f"{r['imgs_per_s']:.0f} img/s, peak {peak_gib:.2f} GiB; {flop / 1e12:.3f} TFLOP a step "
+          f"(3 x forward), {share:.1%} of the bf16 dense peak (bound {r['bound_ms']:.3f} ms); "
+          f"loss {r['loss_first5']:.4f} -> {r['loss_last5']:.4f} (first and last 5 of 25)")
+    check(all(np.isfinite(losses)), "T2: non-finite loss")
+    check(r["loss_last5"] < r["loss_first5"], "T2: the loss did not fall on a repeated batch")
+    return r
+
+
+def t3_run_ssg(dev: torch.device) -> dict:
+    """T3: ``api.train`` for two SSG iterations (the second resumed from the
+    first's checkpoint) of the bf16 ResNet-50 from seeded random weights on
+    synthetic DukeMTMC at scale 0.2, batch 64, K 4, evaluation every
+    iteration."""
+    tgt = datasets.create("dukemtmc", scale=0.2, seed=0)
+    check((len(tgt.train), len(tgt.query), len(tgt.gallery)) == (1120, 280, 560),
+          "T3: unexpected dataset size")
+    model = models.create("resnet50", num_features=0, num_parts=3, dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    logs = tempfile.mkdtemp(prefix="ssg_t3_")
+    ckpt = os.path.join(logs, "checkpoint.pth")
+    kw = dict(epochs=T3_EPOCHS, batch_size=64, num_instances=4, rho=T3_RHO, logs_dir=logs,
+              print_freq=10)
+    step_losses = []
+
+    class Probe:
+        def metric(self, **kv):
+            if kv.get("kind") == "train_step":
+                step_losses.append(kv["loss"])
+
+    history, launches = [], []
+    optimizer = None
+    for iterations, resume in ((1, None), (2, ckpt)):
+        l1.launches = 0
+        optimizer, hist = api.train(model, tgt, SSGConfig(iterations=iterations, **kw),
+                                    logger=Probe(), resume_from=resume)
+        launches.append(l1.launches)
+        history += hist
+    check([h["iteration"] for h in history] == [0, 1], f"T3: iterations run "
+          f"{[h['iteration'] for h in history]}, expected [0, 1] (the second resumed)")
+    rows = []
+    for h, n_l1 in zip(history, launches):
+        row = {"iteration": h["iteration"], "clusters": [c for c, _ in h["clusters"]],
+               "eps": [e for _, e in h["clusters"]], "kept": h["kept"], "steps": h["steps"],
+               "loss": h["loss"], "mAP": h["mAP"], "rank1": h["rank1"], "l1_launches": n_l1}
+        row.update({k: h[k] for k in ("extract_seconds", "cluster_seconds", "train_seconds",
+                                      "eval_seconds")})
+        rows.append(row)
+        print(f"T3 iteration {h['iteration']}: clusters {row['clusters']}, eps "
+              f"{[round(e, 4) for e in row['eps']]}, kept {h['kept']}/1120, {h['steps']} steps, "
+              f"mean loss {h['loss']:.4f}, mAP {h['mAP']:.4f}, rank-1 {h['rank1']:.4f}; seconds: "
+              f"extract {h['extract_seconds']:.2f}, cluster {h['cluster_seconds']:.3f}, train "
+              f"{h['train_seconds']:.2f}, eval {h['eval_seconds']:.2f}; L1 kernel launches {n_l1}")
+    check(all(np.isfinite(step_losses)) and len(step_losses) == sum(r["steps"] for r in rows),
+          "T3: non-finite or missing step losses")
+    check(rows[0]["steps"] >= 10 and rows[1]["steps"] >= 1,
+          f"T3: steps {[r['steps'] for r in rows]}; iteration 0 needs 10 and each must train")
+    check(launches == [3, 3], f"T3: L1 kernel launches {launches}, expected 3 an iteration")
+    # The optimizer carried iteration 0's state into iteration 1.
+    counts = {float(st["step"]) for st in optimizer.state.values()}
+    check(counts == {float(rows[0]["steps"] + rows[1]["steps"])},
+          f"T3: AdamW step counts {counts} after resuming, expected "
+          f"{rows[0]['steps'] + rows[1]['steps']}")
+    # The checkpoint, reloaded onto the card, gives the same eval embeddings.
+    fresh = models.create("resnet50", num_features=0, num_parts=3, dtype=torch.bfloat16)
+    fresh.load_state_dict(load_checkpoint(ckpt, device=dev)["model"])
+    fresh.to(dev, memory_format=torch.channels_last)
+    batches = [(torch.from_numpy(im).to(dev), p, c, m)
+               for im, p, c, m in Preprocessor(tgt, items=tgt.query, batch_size=64)]
+    a = api.extract_features(model, batches)[0]
+    b = api.extract_features(fresh, batches)[0]
+    check(torch.equal(a, b), "T3: the reloaded checkpoint's embeddings differ")
+    print(f"T3: checkpoint reloaded onto the card gives the same {tuple(a.shape)} embeddings bit "
+          f"for bit; AdamW resumed at step {rows[0]['steps']} (ran to "
+          f"{rows[0]['steps'] + rows[1]['steps']}); rho {T3_RHO}, {T3_EPOCHS} epochs")
+    for name in ("checkpoint.pth", "model_best.pth"):
+        if os.path.exists(os.path.join(logs, name)):
+            os.remove(os.path.join(logs, name))
+    os.rmdir(logs)
+    return {"rho": T3_RHO, "epochs": T3_EPOCHS, "iterations": rows}
+
+
+def train_phases(dev: torch.device) -> dict:
+    """Path 3: T1, T2 and T3 (``t1_step_parity``, ``t2_train_step``,
+    ``t3_run_ssg``)."""
+    ds = datasets.create("dukemtmc", scale=0.2, seed=0)
+    t0 = time.perf_counter()
+    t1 = t1_step_parity(dev, ds)
+    t2 = t2_train_step(dev, ds)
+    t3 = t3_run_ssg(dev)
+    return {"t1": t1, "t2": t2, "t3": t3, "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -693,19 +975,20 @@ def main() -> int:
     print(f"l1 V-like ({N},{N})x({N},{N}): max abs err {err:.3e}, rel {rel:.3e}")
     check(rel <= L1_TOL, f"L1 kernel disagrees at the path shape: rel {rel:.3e}")
     del v_like, cols
+    check_operand_conversion(dev)
     check_kernels_ragged(dev)
     check_fp32_blocks(dev)
 
     # 3. Main path.
     batches, model = main_path_inputs(dev)
-    feats, _, _ = api.extract_features(model, batches)
+    feats, _, _, _ = api.extract_features(model, batches)
     api.cluster_groups(feats, **ANALYTICS)  # warm-up: cuDNN/cuBLAS plans, kernel load
     torch.cuda.synchronize()
 
     l1.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    feats, _, _ = api.extract_features(model, batches)
+    feats, _, _, _ = api.extract_features(model, batches)
     torch.cuda.synchronize()
     extract_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -803,6 +1086,10 @@ def main() -> int:
     # 8. The analytics from the distance kernel, and its times.
     dist_row = distance_kernel_path(feats, labels, counts, epss)
 
+    # 9. Path 3: the fine-tuning loop (T1-T3).
+    train = train_phases(dev)
+    kernels[0]["launches_run_ssg"] = [it["l1_launches"] for it in train["t3"]["iterations"]]
+
     # Bottleneck and stage rows: per batch of the path (the 12 identity
     # blocks; the four stages), errors in bf16 ulps (bf16_ulp_error).
     for op, row, replaces in (
@@ -830,6 +1117,7 @@ def main() -> int:
         "bound_ms_fma_dense": dist_row["fma_dense_ms"],
         "library_ms": dist_row["library_ms"],
     })
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

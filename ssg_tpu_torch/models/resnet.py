@@ -1,29 +1,34 @@
 """ResNet with SSG part pooling, in PyTorch.
 
-Counterpart of ``ssg_tpu/models/resnet.py`` (eval forward): a
-torchvision-layout ResNet backbone whose conv5 feature map is pooled three
-ways — whole map, upper half, lower half — each with its own head.
+Counterpart of ``ssg_tpu/models/resnet.py``: a torchvision-layout ResNet
+backbone whose conv5 feature map is pooled three ways — whole map, upper
+half, lower half — each with its own head.
 
 * Public input is NHWC float, as in the JAX package; inside, the network
   runs NCHW, channels-last on the GPU (an NHWC tensor permuted to NCHW
   already has channels-last strides).
-* Convolutions pad ``k // 2`` explicitly; BN eps 1e-5; 3x3/2 max-pool with
-  pad 1; stage strides ``1, 2, 2, last_stride``.
+* Convolutions pad ``k // 2`` explicitly; BN eps 1e-5, momentum 0.1 (Flax's
+  0.9 from the other side); 3x3/2 max-pool with pad 1; stage strides
+  ``1, 2, 2, last_stride``.
 * ``dtype``: the backbone's convolutions compute in ``dtype`` (bf16 runs
-  with fp32 accumulation); BatchNorm parameters stay fp32 and normalise
-  the narrower activation in fp32 (PyTorch's mixed-type batch norm), as
-  Flax does before casting back. The heads run in fp32.
+  with fp32 accumulation). Every weight is an fp32 master, as Flax keeps
+  its parameters: ``Conv2d`` casts it to the activation type at each call,
+  so the optimizer updates fp32 values. BatchNorm normalises the narrower
+  activation in fp32 (PyTorch's mixed-type batch norm), as Flax does before
+  casting back. The heads run in fp32 (in fp64 for an fp64 model, which
+  serves as an exact reference).
+* ``BatchNorm2d`` / ``BatchNorm1d`` update their running variance with the
+  biased batch variance, as Flax does; PyTorch's own use the unbiased one.
 * Module names follow torchvision (``backbone.layer1.0.conv1``,
-  ``downsample.0/1``, ``feat_whole``, ``feat_bn_whole``), so
-  ``models/convert.py`` maps the JAX variables one to one.
-
+  ``downsample.0/1``, ``feat_whole``, ``feat_bn_whole``,
+  ``classifier_whole``), so ``models/convert.py`` maps the JAX variables
+  one to one.
 * ``fused_eval`` (off by default, as in JAX): in eval mode each identity
   bottleneck (stride 1, ``cin == 4 * features``) folds its BatchNorms into
   the conv weights and runs ``ops.bottleneck.fused_bottleneck`` (the CUDA
-  kernels on the card, bf16 or fp32). Those blocks keep their conv weights
-  in fp32, as Flax keeps its parameters, and fold from them: folding a
-  bf16-stored weight would round twice. Other convs are stored in
-  ``dtype``; train mode casts the fp32 masters to ``dtype`` at each conv.
+  kernels on the card, bf16 or fp32). The fold reads the fp32 masters, so
+  each folded weight is rounded once, and is redone whenever a master or a
+  statistic changes (an optimizer step, a train-mode forward).
 
 The JAX package's space-to-depth stem is an exact TPU rewrite of the 7x7
 conv and is not ported.
@@ -42,8 +47,67 @@ from ssg_tpu_torch.ops.bottleneck import fold_bn, fused_bottleneck
 PART_NAMES = ("whole", "up", "down")
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride, padding=k // 2, bias=False)
+class Conv2d(nn.Conv2d):
+    """Bias-free convolution, ``k // 2`` padding, with an fp32 master weight
+    cast to the input's type at each call (Flax's ``nn.Conv`` with its
+    default fp32 ``param_dtype``). The cast is differentiable, so gradients
+    reach the master. Without autograd (an eval extract) the cast copy is
+    cached until the weight is replaced or changed in place."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1):
+        super().__init__(cin, cout, k, stride, padding=k // 2, bias=False)
+        self._cast_cache = None
+
+    def cast_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        w = self.weight
+        if w.dtype == dtype:
+            return w
+        if torch.is_grad_enabled():
+            return w.to(dtype)
+        c = self._cast_cache
+        if c is None or c[0] != w.data_ptr() or c[1] != w._version or c[2].dtype != dtype:
+            c = self._cast_cache = (w.data_ptr(), w._version, w.to(dtype))
+        return c[2]
+
+    def forward(self, x):
+        return F.conv2d(x, self.cast_weight(x.dtype), None, self.stride, self.padding)
+
+
+class _FlaxRunningVariance:
+    """Batch norm with momentum 0.1 and Flax's running statistics.
+
+    Train mode normalises with the batch statistics, as PyTorch's batch
+    norm does, but leaves the biased batch variance in the running variance
+    (Flax's update), where PyTorch leaves the unbiased one: n / (n - 1)
+    larger, 6.7 % at a batch of 16 rows. With r the running variance
+    before, m the momentum and u the unbiased variance that PyTorch wrote,
+    the biased update is ``(1 - m) r + m u (n - 1) / n``, which is
+    ``r' (n - 1) / n + (1 - m) r / n`` of PyTorch's result r'. The
+    correction goes through ``.data``, as PyTorch's own update does not
+    bump the running variance's version either: its backward saved it.
+    ``num_batches_tracked`` (PyTorch's counter for a cumulative average)
+    is not kept: the momentum is fixed. Eval mode normalises with the
+    running statistics. Both call ``F.batch_norm`` directly."""
+
+    def forward(self, x):
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps)
+        n = x.numel() // x.shape[1]
+        rv = self.running_var.data
+        before = rv * ((1.0 - self.momentum) / n)
+        out = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                           True, self.momentum, self.eps)
+        torch.add(before, rv, alpha=(n - 1) / n, out=rv)
+        return out
+
+
+class BatchNorm2d(_FlaxRunningVariance, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm1d(_FlaxRunningVariance, nn.BatchNorm1d):
+    pass
 
 
 class Bottleneck(nn.Module):
@@ -56,17 +120,17 @@ class Bottleneck(nn.Module):
         cout = features * self.expansion
         self.fused_eval = fused_eval
         self._fold_cache = None
-        self.conv1 = _conv(cin, features, 1)
-        self.bn1 = nn.BatchNorm2d(features, eps=1e-5)
-        self.conv2 = _conv(features, features, 3, stride)
-        self.bn2 = nn.BatchNorm2d(features, eps=1e-5)
-        self.conv3 = _conv(features, cout, 1)
-        self.bn3 = nn.BatchNorm2d(cout, eps=1e-5)
+        self.conv1 = Conv2d(cin, features, 1)
+        self.bn1 = BatchNorm2d(features, eps=1e-5)
+        self.conv2 = Conv2d(features, features, 3, stride)
+        self.bn2 = BatchNorm2d(features, eps=1e-5)
+        self.conv3 = Conv2d(features, cout, 1)
+        self.bn3 = BatchNorm2d(cout, eps=1e-5)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if stride != 1 or cin != cout:
-            self.downsample = nn.Sequential(_conv(cin, cout, 1, stride),
-                                            nn.BatchNorm2d(cout, eps=1e-5))
+            self.downsample = nn.Sequential(Conv2d(cin, cout, 1, stride),
+                                            BatchNorm2d(cout, eps=1e-5))
 
     @torch.no_grad()
     def folded(self, dtype: torch.dtype) -> tuple:
@@ -74,7 +138,9 @@ class Bottleneck(nn.Module):
         layout ``ops.bottleneck`` takes: ``(w1, b1, w2, b2, w3, b3)``, plus
         ``(wd, bd)`` for a downsample block. Weights are cast to ``dtype``
         and contiguous, biases fp32. Cached until a source tensor is
-        replaced or changed in place (its ``_version``)."""
+        replaced or changed in place (its ``_version``: an optimizer's
+        in-place update, ``load_state_dict``), or the block runs a
+        train-mode forward (the BN statistics' update)."""
         pairs = [(self.conv1, self.bn1), (self.conv2, self.bn2), (self.conv3, self.bn3)]
         if self.downsample is not None:
             pairs.append((self.downsample[0], self.downsample[1]))
@@ -91,23 +157,21 @@ class Bottleneck(nn.Module):
             self._fold_cache = (key, tuple(out))
         return self._fold_cache[1]
 
-    @staticmethod
-    def _conv(conv: nn.Conv2d, x):
-        if conv.weight.dtype == x.dtype:
-            return conv(x)
-        return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding)
-
     def forward(self, x):
-        if self.fused_eval and not self.training and self.downsample is None:
+        if self.training:
+            # A train-mode forward updates the BN statistics without bumping
+            # their versions, so the fold cache cannot see it: drop it.
+            self._fold_cache = None
+        elif self.fused_eval and self.downsample is None:
             # NCHW with channels-last strides is NHWC-contiguous once permuted:
             # the kernel reads and writes it with no layout copy (other
             # strides are copied once).
             out = fused_bottleneck(x.permute(0, 2, 3, 1).contiguous(), *self.folded(x.dtype))
             return out.permute(0, 3, 1, 2)
         residual = x if self.downsample is None else self.downsample(x)
-        y = self.relu(self.bn1(self._conv(self.conv1, x)))
-        y = self.relu(self.bn2(self._conv(self.conv2, y)))
-        y = self.bn3(self._conv(self.conv3, y))
+        y = self.relu(self.bn1(self.conv1(x)))
+        y = self.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
         return self.relu(y + residual)
 
 
@@ -115,8 +179,8 @@ class ResNetBackbone(nn.Module):
     def __init__(self, stage_sizes: Sequence[int], last_stride: int = 2,
                  fused_eval: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+        self.conv1 = Conv2d(3, 64, 7, 2)
+        self.bn1 = BatchNorm2d(64, eps=1e-5)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, 2, padding=1)
         cin = 64
@@ -140,38 +204,38 @@ class ResNetBackbone(nn.Module):
 
 
 class SSGResNet(nn.Module):
-    """ResNet backbone + SSG multi-part pooling heads (eval forward).
+    """ResNet backbone + SSG multi-part pooling heads.
 
-    ``forward(x)`` takes NHWC float images and returns the embeddings
-    (num_parts, B, F): L2-normalised in eval mode when ``norm`` is set,
-    raw otherwise. ``F`` is ``num_features`` or, when that is 0, the
-    backbone's channel count.
+    ``forward(x)`` takes NHWC float images and returns a dict:
+    ``"embeddings"`` (num_parts, B, F), raw in train mode (the triplet
+    loss's input) and L2-normalised in eval mode when ``norm`` is set; and
+    ``"logits"`` (num_parts, B, num_classes) when ``num_classes > 0``.
+    ``F`` is ``num_features`` or, when that is 0, the backbone's channel
+    count. Dropout (``dropout > 0``, train mode) applies after each part's
+    BatchNorm and feeds only the classifier; the embedding is taken before
+    it.
     """
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), num_features: int = 0,
-                 num_parts: int = 3, norm: bool = True, last_stride: int = 2,
-                 dtype: torch.dtype = torch.float32, fused_eval: bool = False):
+                 dropout: float = 0.0, num_classes: int = 0, num_parts: int = 3,
+                 norm: bool = True, last_stride: int = 2, dtype: torch.dtype = torch.float32,
+                 fused_eval: bool = False):
         super().__init__()
         self.backbone = ResNetBackbone(stage_sizes, last_stride, fused_eval)
         self.num_parts = num_parts
         self.norm = norm
         self.dtype = dtype
+        self.num_features = num_features
+        self.num_classes = num_classes
+        self.drop = nn.Dropout(dropout) if dropout > 0 else nn.Identity()
         width = self.backbone.out_channels
         for part in PART_NAMES[:num_parts]:
             if num_features > 0:
                 self.add_module(f"feat_{part}", nn.Linear(width, num_features))
-            self.add_module(f"feat_bn_{part}",
-                            nn.BatchNorm1d(num_features or width, eps=1e-5))
-        self.num_features = num_features
-        # Convolution weights carry the compute type; BN and heads stay fp32,
-        # and so do the fp32 masters of the blocks that fused_eval folds.
-        masters = set()
-        for blk in self.backbone.modules():
-            if isinstance(blk, Bottleneck) and blk.fused_eval and blk.downsample is None:
-                masters.update((blk.conv1, blk.conv2, blk.conv3))
-        for m in self.backbone.modules():
-            if isinstance(m, nn.Conv2d) and m not in masters:
-                m.to(dtype)
+            self.add_module(f"feat_bn_{part}", BatchNorm1d(num_features or width, eps=1e-5))
+            if num_classes > 0:
+                self.add_module(f"classifier_{part}",
+                                nn.Linear(num_features or width, num_classes))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> "SSGResNet":
@@ -188,7 +252,7 @@ class SSGResNet(nn.Module):
                 m.reset_parameters()
         return self
 
-    def forward(self, x):
+    def forward(self, x) -> dict[str, torch.Tensor]:
         x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC -> NCHW view
         fmap = self.backbone(x)
         h = fmap.shape[2]
@@ -198,16 +262,23 @@ class SSGResNet(nn.Module):
             fmap[:, :, :max(h // 2, 1)].mean((2, 3)),
             fmap[:, :, h // 2:].mean((2, 3)),
         ][:self.num_parts]
-        embeddings = []
+        embeddings, logits = [], []
+        head_dtype = torch.promote_types(self.dtype, torch.float32)  # fp32, or fp64
         for part, pooled in zip(PART_NAMES, pools):
-            y = pooled.float()
+            y = pooled.to(head_dtype)
             if self.num_features > 0:
                 y = getattr(self, f"feat_{part}")(y)
             y = getattr(self, f"feat_bn_{part}")(y)
+            emb = y
             if not self.training and self.norm:
-                y = y / y.norm(dim=1, keepdim=True).clamp_min(1e-12)
-            embeddings.append(y)
-        return torch.stack(embeddings)
+                emb = emb / emb.norm(dim=1, keepdim=True).clamp_min(1e-12)
+            if self.num_classes > 0:
+                logits.append(getattr(self, f"classifier_{part}")(self.drop(y)))
+            embeddings.append(emb)
+        out = {"embeddings": torch.stack(embeddings)}
+        if logits:
+            out["logits"] = torch.stack(logits)
+        return out
 
 
 def resnet50(**kwargs) -> SSGResNet:

@@ -7,8 +7,8 @@ the flags, so an edited source is rebuilt and an unchanged one is not. A
 source is named by ``<name>``, or by its path (the measurement scripts
 build other versions of a source and their own probes the same way). A
 failed build raises, and nothing falls back to another implementation.
-``launch_pairwise`` checks the operands of the all-pairs kernels (L1 and
-distance), allocates their output and launches them.
+``launch_pairwise`` checks and converts the operands of the all-pairs
+kernels (L1 and distance), allocates their output and launches them.
 """
 
 from __future__ import annotations
@@ -101,27 +101,32 @@ def same_operand(x: torch.Tensor, y: torch.Tensor) -> bool:
 
 
 def launch_pairwise(fn, what: str, x: torch.Tensor, y: torch.Tensor, *flags: int) -> torch.Tensor:
-    """Launch an all-pairs kernel on x (M, D) and y (N, D), 2-D contiguous
-    fp32 CUDA tensors on one device, into a new (M, N) fp32 output:
+    """Launch an all-pairs kernel on x (M, D) and y (N, D), 2-D CUDA tensors
+    on one device, into a new (M, N) fp32 output:
     ``fn(x, y, out, M, N, D, ldx, ldy, ldo, symmetric, *flags, stream)`` on
     the current stream, where ``symmetric`` is 1 when ``y`` is ``x``
-    (``same_operand``). Raises on a bad operand or a failed launch."""
+    (``same_operand``). Operands of another type or layout are cast to fp32
+    and made contiguous once, as the JAX package casts them; ``x`` is
+    converted once and passed as ``y`` too when they are the same operand,
+    so the symmetric case survives the conversion. Raises on a bad operand
+    or a failed launch."""
     for name, t in (("x", x), ("y", y)):
-        if t.device.type != "cuda" or t.dtype != torch.float32 or t.dim() != 2:
-            raise ValueError(f"{what}: {name} must be a 2-D fp32 CUDA tensor, "
+        if t.device.type != "cuda" or t.dim() != 2:
+            raise ValueError(f"{what}: {name} must be a 2-D CUDA tensor, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous")
     if x.device != y.device or x.shape[1] != y.shape[1]:
         raise ValueError(f"{what}: x {tuple(x.shape)} on {x.device} and "
                          f"y {tuple(y.shape)} on {y.device} do not match")
+    symmetric = same_operand(x, y)
+    x = x.float().contiguous()
+    y = x if symmetric else y.float().contiguous()
     m, d = x.shape
     n = y.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, d, x.stride(0),
-                 y.stride(0), out.stride(0), int(same_operand(x, y)), *flags, stream)
+                 y.stride(0), out.stride(0), int(symmetric), *flags, stream)
     if err != 0:
         raise RuntimeError(f"{what}: kernel launch failed with CUDA error {err}")
     return out

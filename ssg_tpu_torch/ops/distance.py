@@ -7,7 +7,8 @@ never accumulated in a narrower type.
 * ``impl="auto"`` is the JAX package's default ``_pairwise_xla``: the product
   is ``torch.matmul`` in true fp32 (TF32 off, ``_device.py``), matching its
   ``Precision.HIGHEST`` GEMM.
-* ``impl="kernel"`` is its opt-in Pallas kernel (``impl="pallas"``): on the
+* ``impl="kernel"`` is its opt-in Pallas kernel (``impl="pallas"``, which
+  the port takes as an alias, as it takes ``"xla"`` for ``"auto"``): on the
   card the hand-written CUDA kernel ``csrc/distance.cu`` (3xTF32 products
   on the tensor cores, fp32-accurate, with the norms fused into the K
   loop); on the CPU the plain version. When ``y`` is omitted or is ``x``
@@ -63,11 +64,12 @@ def pairwise_distance(x: torch.Tensor, y: torch.Tensor | None = None,
                       squared: bool = True, impl: str = "auto") -> torch.Tensor:
     """(N, D) x (M, D) -> (N, M) fp32; ``y`` defaults to ``x``.
 
-    impl: ``"auto"`` (the cuBLAS formula, JAX's default) or ``"kernel"``
-    (the CUDA kernel for CUDA tensors, the plain version for CPU tensors).
+    impl: ``"auto"`` (or JAX's ``"xla"``: the cuBLAS formula, JAX's default)
+    or ``"kernel"`` (or JAX's ``"pallas"``: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors).
     """
-    if impl not in ("auto", "kernel"):
+    if impl not in ("auto", "xla", "kernel", "pallas"):
         raise ValueError(f"pairwise_distance: unknown impl {impl!r}")
-    if impl == "auto" or x.device.type == "cpu":
+    if impl in ("auto", "xla") or x.device.type == "cpu":
         return pairwise_distance_ref(x, y, squared)
     return _distance_cuda(x, x if y is None else y, squared)

@@ -55,17 +55,24 @@ def _l1_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# impl names: the port's, and the JAX package's as aliases.
+_PLAIN = ("torch", "xla")
+_KERNEL = ("auto", "pallas")
+
+
 def l1_distance(x: torch.Tensor, y: torch.Tensor | None = None,
                 impl: str = "auto") -> torch.Tensor:
     """All-pairs L1 distance (M, D) x (N, D) -> (M, N), fp32.
 
-    impl: ``"auto"`` launches the CUDA kernel for CUDA tensors and takes the
-    plain version for CPU tensors; ``"torch"`` takes the plain version on
-    any device (the reference the kernel is compared with).
+    impl: ``"auto"`` (or JAX's ``"pallas"``) launches the CUDA kernel for
+    CUDA tensors and takes the plain version for CPU
+    tensors; ``"torch"`` (or JAX's ``"xla"``) takes the plain version on any
+    device (the reference the kernel is compared with). Operands of any
+    floating type or layout are converted to contiguous fp32 first.
     """
     y = x if y is None else y
-    if impl == "torch" or (impl == "auto" and x.device.type == "cpu"):
-        return l1_distance_ref(x, y)
-    if impl != "auto":
+    if impl not in _PLAIN + _KERNEL:
         raise ValueError(f"l1_distance: unknown impl {impl!r}")
+    if impl in _PLAIN or x.device.type == "cpu":
+        return l1_distance_ref(x, y)
     return _l1_cuda(x, y)

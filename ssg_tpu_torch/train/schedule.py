@@ -1,0 +1,55 @@
+"""Optimizer and learning-rate schedule of the SSG fine-tune loop.
+
+Counterpart of ``ssg_tpu/train/schedule.py``. The JAX package injects the
+learning rate into optax's ``adamw`` state so the host can set it once per
+epoch; here the learning rate lives in the optimizer's param groups, which
+``set_learning_rate`` sets. ``lr_at`` is a copy of JAX's.
+
+``make_optimizer`` is ``torch.optim.AdamW`` with optax ``adamw``'s defaults
+(betas 0.9 / 0.999, eps 1e-8, eps inside the root's denominator): both apply
+``p (1 - lr wd) - lr m_hat / (sqrt(v_hat) + eps)`` to every parameter, BN
+included (``tests/test_torch_train.py`` holds the two to each other).
+It runs the multi-tensor (``foreach``) update: its in-place updates bump
+each parameter's version, which the model's cached casts and BN folds key
+on (the ``fused`` update does not).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def make_optimizer(params, learning_rate: float,
+                   weight_decay: float = 5e-4) -> torch.optim.AdamW:
+    """AdamW over ``params`` with the learning rate settable per epoch."""
+    return torch.optim.AdamW(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=weight_decay, foreach=True)
+
+
+def lr_at(
+    epoch: int,
+    base_lr: float,
+    schedule: str = "constant",
+    step_size: int = 40,
+    gamma: float = 0.1,
+    warmup_epochs: int = 0,
+) -> float:
+    """Epoch-indexed learning rate.
+
+    - linear warmup over ``warmup_epochs`` (0 disables),
+    - then ``constant`` or ``step`` (torch StepLR: x ``gamma`` every
+      ``step_size`` epochs, counted from epoch 0).
+    """
+    if warmup_epochs > 0 and epoch < warmup_epochs:
+        return base_lr * (epoch + 1) / warmup_epochs
+    if schedule == "constant":
+        return base_lr
+    if schedule == "step":
+        return base_lr * gamma ** (epoch // step_size)
+    raise ValueError(f"unknown lr schedule {schedule!r}")
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Set the learning rate of every param group of ``optimizer``."""
+    for group in optimizer.param_groups:
+        group["lr"] = lr

@@ -84,7 +84,7 @@ def test_folded_bf16_weights_round_once(rng):
     _, _, variables, tm = _pair(rng, (2, 2), 1, dtype=torch.bfloat16)
     blk = tm.backbone.layer2[1]
     assert blk.conv2.weight.dtype == torch.float32  # the master
-    assert tm.backbone.layer2[0].conv2.weight.dtype == torch.bfloat16
+    assert tm.backbone.layer2[0].conv2.weight.dtype == torch.float32  # every conv keeps one
     ours = blk.folded(torch.bfloat16)
     p = variables["params"]["backbone"]["layer2_1"]
     s = variables["batch_stats"]["backbone"]["layer2_1"]
@@ -169,11 +169,11 @@ def test_fused_model_matches_jax_fp32(rng, stage_sizes, batch, atol):
     x, fm, variables, tm = _pair(rng, stage_sizes, batch)
     ref = np.asarray(fm.apply(variables, jnp.asarray(x), train=False)["embeddings"])
     with torch.no_grad():
-        ours = tm(_t(x)).numpy()
+        ours = tm(_t(x))["embeddings"].numpy()
         unfused = models.create("resnet50", stage_sizes=stage_sizes, num_features=0,
                                 num_parts=3).eval()
         unfused.load_state_dict(tm.state_dict())
-        plain = unfused(_t(x)).numpy()
+        plain = unfused(_t(x))["embeddings"].numpy()
     assert ours.shape == ref.shape
     # fp32 sums in another order through the depth of the network (the
     # tolerances of tests/test_torch_model.py); fused against unfused within
@@ -205,7 +205,7 @@ def test_fold_cache_follows_weights(rng):
     tm.load_state_dict(fresh.state_dict())
     assert blk.folded(torch.float32) is not first
     with torch.no_grad():
-        torch.testing.assert_close(tm(x), fresh(x), rtol=0, atol=0)
+        torch.testing.assert_close(tm(x)["embeddings"], fresh(x)["embeddings"], rtol=0, atol=0)
         blk.bn2.running_var.mul_(2.0)  # an in-place change of one statistic
-        changed = tm(x)
-    assert not torch.equal(changed, fresh(x))
+        changed = tm(x)["embeddings"]
+    assert not torch.equal(changed, fresh(x)["embeddings"])

@@ -89,11 +89,36 @@ def test_l1_kernel_v_like(gen, cuda):
 def test_l1_kernel_rejects_bad_input(cuda):
     x = torch.ones((8, 4), device=cuda)
     with pytest.raises(ValueError):
-        l1_distance(x.T, x.T)  # not contiguous
-    with pytest.raises(ValueError):
-        l1_distance(x.double())
-    with pytest.raises(ValueError):
         l1_distance(x, torch.ones((8, 5), device=cuda))
+    with pytest.raises(ValueError):
+        l1_distance(x, impl="nope")
+
+
+# Operands JAX accepts: another floating type, a strided view. The wrapper
+# converts them to contiguous fp32 once, as JAX casts; a view against itself
+# stays the symmetric case (exactly symmetric output), and the result equals
+# the kernel on the converted operands.
+@pytest.mark.parametrize("kernel", ["l1", "distance"])
+def test_pairwise_kernels_convert_operands_like_jax(gen, cuda, kernel):
+    def call(a, b=None):
+        if kernel == "l1":
+            return l1_distance(a, b, impl="pallas")
+        return pairwise_distance(a, b, impl="pallas")
+
+    mod = l1_mod if kernel == "l1" else dist_mod
+    base = torch.from_numpy(gen.normal(size=(300, 130)).astype(np.float32)).to(cuda)
+    strided = base[::2, 1:]  # (150, 129), rows not contiguous
+    for x in (strided, strided.to(torch.bfloat16), strided.double(), base.T):
+        before = mod.launches
+        out = call(x)
+        torch.cuda.synchronize()
+        assert mod.launches == before + 1
+        assert torch.equal(out, out.T)  # y is x: the symmetric launch
+        assert torch.equal(out, call(x.float().contiguous()))
+    y = base[1::2, :129].to(torch.bfloat16)
+    torch.testing.assert_close(call(strided.to(torch.bfloat16), y),
+                               call(strided.to(torch.bfloat16).float(), y.float()),
+                               rtol=0, atol=0)
 
 
 def test_cluster_groups_card_matches_cpu(gen, cuda):
@@ -281,13 +306,9 @@ def test_distance_kernel_symmetric(gen, cuda, n, d, squared):
 def test_distance_kernel_rejects_bad_input(cuda):
     x = torch.ones((8, 4), device=cuda)
     with pytest.raises(ValueError):
-        pairwise_distance(x.T, impl="kernel")
-    with pytest.raises(ValueError):
-        pairwise_distance(x.double(), impl="kernel")
-    with pytest.raises(ValueError):
         pairwise_distance(x, torch.ones((8, 5), device=cuda), impl="kernel")
     with pytest.raises(ValueError):
-        pairwise_distance(x, impl="pallas")
+        pairwise_distance(x, impl="nope")
 
 
 def test_fused_eval_model_matches_unfused(cuda):
@@ -300,8 +321,8 @@ def test_fused_eval_model_matches_unfused(cuda):
     x = torch.from_numpy(np.random.default_rng(1).normal(size=(4, 256, 128, 3)).astype(np.float32))
     before = bn_mod.launches
     with torch.no_grad():
-        a = plain(x.to(cuda))
-        b = fused(x.to(cuda))
+        a = plain(x.to(cuda))["embeddings"]
+        b = fused(x.to(cuda))["embeddings"]
     torch.cuda.synchronize()
     assert bn_mod.launches == before + 12  # the 12 identity blocks of ResNet-50
     cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
@@ -320,8 +341,8 @@ def test_fused_eval_fp32_model_matches_unfused(cuda):
     x = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 256, 128, 3)).astype(np.float32))
     before = bn_mod.launches
     with torch.no_grad():
-        a = plain(x.to(cuda))
-        b = fused(x.to(cuda))
+        a = plain(x.to(cuda))["embeddings"]
+        b = fused(x.to(cuda))["embeddings"]
     torch.cuda.synchronize()
     assert bn_mod.launches == before + 12  # the 12 identity blocks of ResNet-50
     assert a.dtype == b.dtype == torch.float32 and bool(torch.isfinite(b).all())

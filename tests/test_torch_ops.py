@@ -23,7 +23,7 @@ from ssg_tpu_torch.cluster import dbscan, select_eps
 from ssg_tpu_torch.ops import _build
 from ssg_tpu_torch.ops import distance as dist_mod
 from ssg_tpu_torch.ops import l1 as l1_mod
-from ssg_tpu_torch.ops.distance import pairwise_distance
+from ssg_tpu_torch.ops.distance import pairwise_distance, pairwise_distance_ref
 from ssg_tpu_torch.ops.l1 import l1_distance, l1_distance_ref
 from ssg_tpu_torch.ops.rerank import re_ranking
 from ssg_tpu_torch.ops.topk import exact_max_k, exact_min_k
@@ -56,9 +56,13 @@ def test_l1_dispatch_on_cpu(rng):
     # CPU tensors take the plain version; no kernel launch is counted.
     torch.testing.assert_close(l1_distance(x), l1_distance_ref(x, x), rtol=0, atol=0)
     torch.testing.assert_close(l1_distance(x, impl="torch"), l1_distance_ref(x), rtol=0, atol=0)
+    # JAX's impl names are aliases: "xla" the plain version, "pallas" the
+    # kernel (the plain version for CPU tensors).
+    for impl in ("xla", "pallas"):
+        torch.testing.assert_close(l1_distance(x, impl=impl), l1_distance_ref(x), rtol=0, atol=0)
     assert l1_mod.launches == before
     with pytest.raises(ValueError):
-        l1_distance(x, impl="pallas")
+        l1_distance(x, impl="nope")
 
 
 @pytest.mark.parametrize("squared", [True, False])
@@ -114,11 +118,14 @@ def test_same_operand():
 
 
 def test_pairwise_distance_unknown_impl():
-    x = torch.ones((3, 2))
+    # JAX's impl names are aliases ("xla" for "auto", "pallas" for
+    # "kernel"); other names raise.
+    x = torch.from_numpy(np.arange(6, dtype=np.float32).reshape(3, 2))
+    for impl in ("xla", "pallas"):
+        torch.testing.assert_close(pairwise_distance(x, impl=impl), pairwise_distance_ref(x),
+                                   rtol=0, atol=0)
     with pytest.raises(ValueError):
-        pairwise_distance(x, impl="pallas")
-    with pytest.raises(ValueError):
-        pairwise_distance(x, impl="xla")
+        pairwise_distance(x, impl="nope")
 
 
 def test_exact_min_k_values_and_tie_free_indices(rng):

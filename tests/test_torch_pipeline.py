@@ -2,6 +2,10 @@
 features -> cluster_groups, and images -> features -> labels with weights
 carried over from JAX."""
 
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +23,7 @@ from ssg_tpu_torch.data import Preprocessor, datasets
 from ssg_tpu_torch.models.convert import from_jax_variables
 
 KW = dict(k1=20, k2=6, lambda_value=0.1, rho=0.02, min_samples=4)
+ROOT = Path(__file__).resolve().parent.parent
 
 
 def _clustered_feats(rng, groups=3, n=150, f=48, ids=15):
@@ -66,9 +71,10 @@ def test_images_to_labels_with_carried_weights():
 
     tm = models.create("resnet50", stage_sizes=stage_sizes, num_features=0).eval()
     tm.load_state_dict(from_jax_variables(jax.tree.map(np.asarray, variables)))
-    feats, pids, cams = api.extract_features(tm, Preprocessor(ds, items=items, batch_size=32),
-                                             device="cpu")
+    feats, pids, cams, fnames = api.extract_features(
+        tm, Preprocessor(ds, items=items, batch_size=32), device="cpu")
     assert feats.shape == (3, 90, 512)  # padding rows of the tail batch dropped
+    assert fnames == [f for f, _, _ in items]  # the fourth value, as JAX returns
     np.testing.assert_array_equal(pids, [p for _, p, _ in items])
     np.testing.assert_array_equal(cams, [c for _, _, c in items])
     np.testing.assert_allclose(feats.numpy(), np.asarray(jfeats), rtol=0, atol=1e-5)
@@ -81,6 +87,18 @@ def test_images_to_labels_with_carried_weights():
     # features here are near-duplicates, so eps (~1e-4) is a cancellation
     # residue with an absolute fp32 error of ~1e-7.
     np.testing.assert_allclose(ours[2], ref[2], rtol=0, atol=1e-6)
+
+
+def test_tf32_is_off_once_the_package_is_imported():
+    # A fresh interpreter with TF32 switched on, as cuDNN has it by default:
+    # importing the port switches it off for cuBLAS and cuDNN.
+    code = ("import torch; torch.backends.cuda.matmul.allow_tf32 = True; "
+            "torch.backends.cudnn.allow_tf32 = True; import ssg_tpu_torch; "
+            "print(torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["False", "False"]
 
 
 def test_entry_points_default_to_cuda():
