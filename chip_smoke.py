@@ -22,7 +22,18 @@ DBSCAN (min_samples=4):
   the CPU; T2, the bf16 train step at batch 64 (P 16 x K 4), timed; T3,
   ``api.train`` (``run_ssg``) for two iterations on synthetic DukeMTMC at
   scale 0.2 (1120 train images), the second resumed from the first's
-  checkpoint, its ``cluster_groups`` launching the CUDA L1 kernel.
+  checkpoint, its ``cluster_groups`` launching the CUDA L1 kernel;
+* path 4, the command-line workflow (``cli_phases``), through the CLIs'
+  ``main(argv)`` at full width (bf16 ResNet-50, batch 64, K 4, seed 0): P1,
+  ``cli.pretraining`` (softmax + triplet) on synthetic Market-1501 at scale
+  0.1 (600 images, 75 identities) for 2 epochs, evaluated on DukeMTMC; P2,
+  the same with ``--loss oim`` for 1 epoch; P3, ``cli.selftraining
+  --resume`` of P1's checkpoint on DukeMTMC at scale 0.2, 1 iteration of 2
+  epochs, ``--rerank`` (4 L1 kernel launches); P4, ``cli.semitraining
+  --resume`` of the same checkpoint, 1 iteration (fresh target-sized
+  heads); P5, the bf16 train step with and without ``remat``; P6,
+  ``evaluation_metrics`` (``cmc`` with its flags, ``mean_ap``,
+  ``accuracy``) on the card against the same calls on the CPU.
 
 It checks them:
 
@@ -48,11 +59,19 @@ It checks them:
 6. runs path 3 and checks it: T1's loss and gradients against the CPU, T2's
    loss falling on its repeated batch, T3's finite losses, training in each
    iteration, the reloaded checkpoint's embeddings (bit for bit) and the
-   optimizer state restored on resume.
+   optimizer state restored on resume;
+7. runs path 4 and checks it: each CLI exits 0; P1's epochs train and its
+   evaluation is in range; P2's touched table rows have unit norm and the
+   others are 0; P3 and P4 train and evaluate, with 4 and 3 L1 kernel
+   launches, and P4 keeps heads sized to the target; P5's losses and BN
+   statistics agree within 1e-3 relative over 5 steps and remat's peak
+   memory is below the plain step's; P6's first-match curves and accuracy
+   equal the CPU's, and its allshots curves and mAP are within 1e-6.
 
-Any failed check ends the run with a nonzero exit. The last four lines are
-path 3's ``train`` JSON, the kernels' JSON, the card's name and power limit
-from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
+Any failed check ends the run with a nonzero exit. The last five lines are
+path 3's ``train`` JSON, path 4's ``cli`` JSON, the kernels' JSON, the
+card's name and power limit from ``nvidia-smi``, and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -60,6 +79,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -72,8 +92,10 @@ import torch
 import torch.nn.functional as F
 
 from ssg_tpu_torch import api, models, resolve_device
+from ssg_tpu_torch.cli import pretraining, selftraining, semitraining
 from ssg_tpu_torch.cluster import dbscan, select_eps
 from ssg_tpu_torch.data import Preprocessor, datasets, transforms
+from ssg_tpu_torch.evaluation_metrics import accuracy, cmc, mean_ap
 from ssg_tpu_torch.ops import _build, bottleneck, bottleneck_stage, distance, l1
 from ssg_tpu_torch.ops.bottleneck import bf16_ulp_error, bottleneck_ref, fused_bottleneck
 from ssg_tpu_torch.ops.bottleneck_stage import fused_bottleneck_stage, stage_ref
@@ -934,6 +956,260 @@ def train_phases(dev: torch.device) -> dict:
     return {"t1": t1, "t2": t2, "t3": t3, "seconds": time.perf_counter() - t0}
 
 
+# Path 4: the command-line workflow, through the CLIs' main(argv).
+CLI_MODEL = ["--arch", "resnet50", "--num_features", "0", "--batch_size", "64",
+             "--num_instances", "4", "--dtype", "bfloat16", "--seed", "0", "--print_freq", "10"]
+# P1/P2's source (600 images of 75 identities) and P1's evaluation target;
+# P3/P4's target (1120 train images of 140 identities, 280 + 560 to evaluate).
+CLI_SOURCE_SCALE = "0.1"
+CLI_TARGET_SCALE = "0.2"
+LUT_NORM_TOL = 1e-5
+REMAT_REL = 1e-3  # remat against the plain step: losses and BN statistics, bf16 kernels
+METRICS_TOL = 1e-6  # allshots CMC and mAP, card against CPU: fp32 sums in another order
+
+
+def run_cli(name: str, main_fn, argv: list[str], logs: str) -> dict:
+    """One CLI run in this process, with the L1 kernel's count set to 0
+    just before and read just after; its structured log read back."""
+    l1.launches = 0
+    t0 = time.perf_counter()
+    rc = main_fn(argv + ["--logs_dir", logs])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"{name}: exit code {rc}")
+    with open(os.path.join(logs, "log.txt.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    return {"metrics": metrics, "l1_launches": l1.launches, "seconds": seconds}
+
+
+def of_kind(run: dict, kind: str) -> list[dict]:
+    return [m for m in run["metrics"] if m["kind"] == kind]
+
+
+def p1_p2_pretraining(root: str) -> tuple[dict, dict, str]:
+    """P1: softmax + triplet pretraining on synthetic Market-1501 at scale
+    0.1, 2 epochs, evaluated on DukeMTMC. P2: the same with OIM, 1 epoch;
+    its table's touched rows must be unit rows and the others still 0."""
+    base = CLI_MODEL + ["--dataset", "market1501", "--scale", CLI_SOURCE_SCALE]
+    p1 = run_cli("P1", pretraining.main, base + ["--epochs", "2", "--evaluate_on", "dukemtmc"],
+                 os.path.join(root, "p1"))
+    epochs = of_kind(p1, "pretrain_epoch")
+    (ev,), (secs,) = of_kind(p1, "eval"), of_kind(p1, "seconds")
+    check(len(epochs) == 2 and all(e["steps"] > 0 and np.isfinite(e["loss"]) for e in epochs),
+          f"P1: epochs {epochs}")
+    check(0.0 <= ev["mAP"] <= 1.0 and 0.0 <= ev["rank1"] <= 1.0, f"P1: evaluation {ev}")
+    ckpt_path = os.path.join(root, "p1", "source_checkpoint.pth")
+    ckpt = load_checkpoint(ckpt_path, device="cpu")
+    check(tuple(ckpt["model"]["classifier_whole.weight"].shape) == (75, 2048),
+          "P1: the classifier is not sized to the 75 source identities")
+    r1 = {"losses": [e["loss"] for e in epochs], "steps": [e["steps"] for e in epochs],
+          "lrs": sorted({r for e in epochs for r in e["lrs"]}), "mAP": ev["mAP"],
+          "rank1": ev["rank1"], "train_seconds": secs["train"], "eval_seconds": secs["eval"],
+          "epoch_seconds": [e["seconds"] for e in epochs], "seconds": p1["seconds"],
+          "l1_launches": p1["l1_launches"]}
+    print(f"P1 pretraining (softmax + triplet, Market-1501 x{CLI_SOURCE_SCALE}, 2 epochs): loss "
+          f"per epoch {[round(x, 4) for x in r1['losses']]}, steps {r1['steps']}, DukeMTMC "
+          f"mAP {ev['mAP']:.4f} rank-1 {ev['rank1']:.4f}; seconds: train {secs['train']:.2f} "
+          f"(epochs {[round(x, 2) for x in r1['epoch_seconds']]}), eval {secs['eval']:.2f}")
+
+    p2 = run_cli("P2", pretraining.main, base + ["--epochs", "1", "--loss", "oim"],
+                 os.path.join(root, "p2"))
+    (epoch,) = of_kind(p2, "pretrain_epoch")
+    lut = load_checkpoint(os.path.join(root, "p2", "source_checkpoint.pth"), device="cpu")["lut"]
+    norms = lut.double().norm(dim=1)
+    touched = norms > 0
+    worst = float((norms[touched] - 1).abs().max()) if bool(touched.any()) else float("inf")
+    check(np.isfinite(epoch["loss"]) and epoch["steps"] > 0, f"P2: epoch {epoch}")
+    check(tuple(lut.shape) == (75, 2048), f"P2: table shape {tuple(lut.shape)}")
+    check(worst <= LUT_NORM_TOL, f"P2: touched rows' norms off 1 by {worst:.2e}")
+    check(not bool(lut[~touched].any()), "P2: an untouched row is not 0")
+    r2 = {"loss": epoch["loss"], "steps": epoch["steps"], "touched_rows": int(touched.sum()),
+          "worst_norm_err": worst, "seconds": p2["seconds"], "l1_launches": p2["l1_launches"]}
+    print(f"P2 pretraining (OIM + triplet, 1 epoch): loss {epoch['loss']:.4f}, {epoch['steps']} "
+          f"steps, {r2['touched_rows']}/75 table rows touched (norms within {worst:.2e} of 1, "
+          f"the rest 0); {p2['seconds']:.2f} s")
+    return r1, r2, ckpt_path
+
+
+def ssg_cli(name: str, main_fn, argv: list[str], logs: str, launches: int) -> dict:
+    """P3/P4: one SSG iteration through a CLI; it must train, evaluate and
+    launch the L1 kernel ``launches`` times."""
+    run = run_cli(name, main_fn, argv, logs)
+    its = of_kind(run, "iteration")
+    check(len(its) == 1 and its[0]["steps"] > 0 and "mAP" in its[0],
+          f"{name}: the iteration did not train and evaluate ({its})")
+    check(run["l1_launches"] == launches,
+          f"{name}: L1 kernel launches {run['l1_launches']}, expected {launches}")
+    (it,) = its
+    r = {k: it[k] for k in ("kept", "steps", "loss", "mAP", "rank1", "extract_seconds",
+                            "cluster_seconds", "train_seconds", "eval_seconds")}
+    r.update(clusters=[c for c, _ in it["clusters"]], seconds=run["seconds"],
+             l1_launches=run["l1_launches"])
+    print(f"{name}: clusters {r['clusters']}, kept {it['kept']}/1120, {it['steps']} steps, mean "
+          f"loss {it['loss']:.4f}, mAP {it['mAP']:.4f}, rank-1 {it['rank1']:.4f}; seconds: "
+          f"extract {it['extract_seconds']:.2f}, cluster {it['cluster_seconds']:.3f}, train "
+          f"{it['train_seconds']:.2f}, eval {it['eval_seconds']:.2f}, all {run['seconds']:.2f}; "
+          f"L1 kernel launches {run['l1_launches']}")
+    return r
+
+
+def p5_remat(dev: torch.device, ds) -> dict:
+    """P5: the bf16 step of ResNet-50 at batch 64 (P 16 x K 4) on one batch
+    with fixed crops, with and without remat, from the same weights, in
+    turns: 5 steps compared (loss, BN statistics, and the parameters, which
+    the gradients moved), then 10 timed each (CUDA
+    events). Peak memory is read per step, with both models and what earlier
+    phases hold resident, and also as the step's rise over the memory
+    allocated before it (activations, gradients, workspaces)."""
+    images, labels = pk_batch(ds, 16, 4)
+    images, labels = images.to(dev), labels.to(dev)
+    crops = transforms.draw_crops(torch.Generator(device=dev).manual_seed(3), 64, TRAIN_H,
+                                  TRAIN_W)
+    plain = models.create("resnet50", num_features=0, num_parts=3, dtype=torch.bfloat16)
+    plain.reset_parameters(torch.Generator().manual_seed(0))
+    remat = copy.deepcopy(plain)
+    steps = {}
+    for name, m in (("plain", plain), ("remat", remat)):
+        m.to(dev, memory_format=torch.channels_last)
+        steps[name] = make_train_step(m, make_optimizer(m.parameters(), 6e-5), num_parts=3,
+                                      height=TRAIN_H, width=TRAIN_W, remat=name == "remat")
+    losses = {"plain": [], "remat": []}
+    ms = {"plain": [], "remat": []}
+    peak = {"plain": [], "remat": []}
+    rise = {"plain": [], "remat": []}
+    stat_err = None
+    for i in range(15):
+        for name in (("plain", "remat") if i % 2 == 0 else ("remat", "plain")):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = steps[name](images, labels, crops=crops)
+            end.record()
+            torch.cuda.synchronize()
+            peak[name].append(torch.cuda.max_memory_allocated() / 2**30)
+            rise[name].append((torch.cuda.max_memory_allocated() - before) / 2**30)
+            losses[name].append(float(out["loss"]))
+            if i >= 5:
+                ms[name].append(start.elapsed_time(end))
+        if i == 4:
+            rel = {k: float((a.double() - b.double()).abs().max())
+                   / max(float(a.double().abs().max()), 1e-12)
+                   for (k, a), b in zip(plain.state_dict().items(), remat.state_dict().values())}
+            stat_err = max(v for k, v in rel.items() if "running" in k)
+            param_err = max(rel[k] for k, _ in plain.named_parameters())
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(losses["plain"][:5], losses["remat"][:5]))
+    r = {"peak_gib": {k: max(v[1:]) for k, v in peak.items()},
+         "step_rise_gib": {k: max(v[1:]) for k, v in rise.items()},
+         "median_ms": {k: statistics.median(v) for k, v in ms.items()},
+         "loss_rel_err_5_steps": loss_err, "bn_stats_rel_err_5_steps": stat_err,
+         "params_rel_err_5_steps": param_err,
+         "losses_5": {k: v[:5] for k, v in losses.items()},
+         "model_gib": torch.cuda.memory_allocated() / 2**30}
+    r["slowdown"] = r["median_ms"]["remat"] / r["median_ms"]["plain"]
+    print(f"P5 remat, bf16 ResNet-50 batch 64: peak {r['peak_gib']['plain']:.3f} GiB plain, "
+          f"{r['peak_gib']['remat']:.3f} GiB remat ({r['model_gib']:.3f} GiB resident after the "
+          f"steps); a step's rise {r['step_rise_gib']['plain']:.3f} GiB plain, "
+          f"{r['step_rise_gib']['remat']:.3f} GiB remat; median {r['median_ms']['plain']:.3f} "
+          f"ms plain, {r['median_ms']['remat']:.3f} ms remat ({r['slowdown']:.3f}x, 10 steps "
+          f"each in turns, CUDA events); over 5 steps "
+          f"losses within {loss_err:.2e} relative, BN statistics within {stat_err:.2e}, "
+          f"parameters within {param_err:.2e} of each tensor's largest")
+    check(loss_err <= REMAT_REL, f"P5: remat's losses differ by {loss_err:.2e}")
+    check(stat_err <= REMAT_REL, f"P5: remat's BN statistics differ by {stat_err:.2e}")
+    check(r["peak_gib"]["remat"] < r["peak_gib"]["plain"],
+          f"P5: remat's peak {r['peak_gib']['remat']:.3f} GiB is not below the plain step's "
+          f"{r['peak_gib']['plain']:.3f}")
+    return r
+
+
+def p6_metrics(dev: torch.device) -> dict:
+    """P6: ``evaluation_metrics`` on the card against the same calls on the
+    CPU. A seeded protocol (1000 queries against 4000 gallery images of 200
+    identities on 6 cameras, quantised distances with many ties): ``cmc``
+    in the four combinations of ``separate_camera_set`` x
+    ``first_match_break`` at topk 150 (first match exact, allshots within
+    1e-6), ``mean_ap`` within 1e-6, ``accuracy`` on tied integer logits
+    exactly. ``single_gallery_shot``: exact on a gallery with one valid
+    image an identity (there the draw decides nothing), and on the random
+    protocol finite, nondecreasing and in range (the card's draws are not
+    the CPU's)."""
+    rng = np.random.default_rng(7)
+    nq, ng, ids, cams = 1000, 4000, 200, 6
+    q_ids, g_ids = rng.integers(0, ids, nq), rng.integers(0, ids, ng)
+    q_cams, g_cams = rng.integers(0, cams, nq), rng.integers(0, cams, ng)
+    dist = (rng.integers(0, 64, (nq, ng)) / 8.0).astype(np.float32)
+    dist -= 2.0 * (q_ids[:, None] == g_ids[None, :])
+    args = (dist, q_ids, g_ids, q_cams, g_cams)
+    t0 = time.perf_counter()
+    errs = {}
+    for sep in (False, True):
+        for fmb in (False, True):
+            kw = dict(topk=150, separate_camera_set=sep, first_match_break=fmb)
+            card, cpu = cmc(*args, device=dev, **kw), cmc(*args, device="cpu", **kw)
+            name = f"cmc separate_camera_set={sep} first_match_break={fmb}"
+            check(card.shape == (150,) and bool(np.isfinite(card).all()), f"P6: {name} shape")
+            errs[name] = float(np.abs(card - cpu).max())
+            check(errs[name] <= (0.0 if fmb else METRICS_TOL),
+                  f"P6: {name} differs from the CPU by {errs[name]:.2e}")
+    errs["mean_ap"] = abs(mean_ap(*args, device=dev) - mean_ap(*args, device="cpu"))
+    check(errs["mean_ap"] <= METRICS_TOL, f"P6: mean_ap differs by {errs['mean_ap']:.2e}")
+    logits = rng.integers(0, 3, (512, 100)).astype(np.float32)
+    target = rng.integers(0, 100, 512)
+    acc = accuracy(logits, target, topk=(1, 5), device=dev)
+    check(acc == accuracy(logits, target, topk=(1, 5), device="cpu"), f"P6: accuracy {acc}")
+    # One valid gallery image an identity (cameras differ from the queries').
+    single = (rng.normal(size=(2 * ids, ids)).astype(np.float32), np.arange(ids).repeat(2),
+              np.arange(ids), np.zeros(2 * ids, int), np.ones(ids, int))
+    for sep in (False, True):
+        for fmb in (False, True):
+            kw = dict(topk=150, single_gallery_shot=True, separate_camera_set=sep,
+                      first_match_break=fmb)
+            card = cmc(*single, device=dev, **kw)
+            check(np.array_equal(card, cmc(*single, device="cpu", **kw)),
+                  f"P6: single_gallery_shot (sep={sep}, fmb={fmb}) differs from the CPU")
+            card = cmc(*args, rng=np.random.default_rng(0), device=dev, **kw)
+            top = 10.0 if fmb else 1.0  # the oracle's x repeats quirk
+            check(bool(np.isfinite(card).all()) and bool((np.diff(card) >= 0).all())
+                  and card[0] >= 0.0 and card[-1] <= top * (1 + 1e-6),
+                  f"P6: single_gallery_shot (sep={sep}, fmb={fmb}) on the card: {card[:5]}")
+    r = {"max_err": errs, "accuracy": acc, "seconds": time.perf_counter() - t0}
+    print(f"P6 metrics on the card against the CPU ({nq} x {ng}, ties): worst "
+          f"{max(errs.values()):.2e} ({', '.join(f'{k} {v:.2e}' for k, v in errs.items())}); "
+          f"accuracy {acc} equal; single_gallery_shot exact where the draw decides nothing, in "
+          f"range elsewhere; {r['seconds']:.2f} s")
+    return r
+
+
+def cli_phases(dev: torch.device) -> dict:
+    """Path 4: P1-P4 through the CLIs in this process, each in a log
+    directory of its own under a temporary one, then P5 (remat) and P6
+    (the evaluation metrics on the card)."""
+    root = tempfile.mkdtemp(prefix="ssg_cli_")
+    t0 = time.perf_counter()
+    try:
+        p1, p2, source = p1_p2_pretraining(root)
+        target = CLI_MODEL + ["--tgt_dataset", "dukemtmc", "--scale", CLI_TARGET_SCALE,
+                              "--iteration", "1", "--resume", source]
+        # 3 launches in cluster_groups, 1 in the re-ranked evaluation.
+        p3 = ssg_cli("P3 selftraining", selftraining.main,
+                     target + ["--epochs", "2", "--rho", "1.6e-3", "--rerank"],
+                     os.path.join(root, "p3"), launches=4)
+        p4 = ssg_cli("P4 semitraining", semitraining.main, target + ["--epochs", "1"],
+                     os.path.join(root, "p4"), launches=3)
+        heads = load_checkpoint(os.path.join(root, "p4", "checkpoint.pth"),
+                                device="cpu")["model"]["classifier_whole.weight"]
+        check(tuple(heads.shape) == (140, 2048),
+              f"P4: classifier {tuple(heads.shape)}, expected the 140 target identities")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    p5 = p5_remat(dev, datasets.create("dukemtmc", scale=0.2, seed=0))
+    p6 = p6_metrics(dev)
+    return {"p1": p1, "p2": p2, "p3": p3, "p4": p4, "p5": p5, "p6": p6,
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -1090,6 +1366,10 @@ def main() -> int:
     train = train_phases(dev)
     kernels[0]["launches_run_ssg"] = [it["l1_launches"] for it in train["t3"]["iterations"]]
 
+    # 10. Path 4: the CLIs (P1-P4) and remat (P5).
+    cli = cli_phases(dev)
+    kernels[0]["launches_cli"] = {p: cli[p]["l1_launches"] for p in ("p1", "p2", "p3", "p4")}
+
     # Bottleneck and stage rows: per batch of the path (the 12 identity
     # blocks; the four stages), errors in bf16 ulps (bf16_ulp_error).
     for op, row, replaces in (
@@ -1118,6 +1398,7 @@ def main() -> int:
         "library_ms": dist_row["library_ms"],
     })
     print(json.dumps({"train": train}))
+    print(json.dumps({"cli": cli}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

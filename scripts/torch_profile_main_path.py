@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with a card and ``nvcc``:
 
-    python3 scripts/torch_profile_main_path.py [--fused-eval | --train]
+    python3 scripts/torch_profile_main_path.py [--fused-eval | --train [--remat]]
 
 Same workload as ``chip_smoke.py`` (bench config-1, N = 3368, 3 groups);
 ``--fused-eval`` extracts with the same weights and ``fused_eval=True``
@@ -12,7 +12,9 @@ the CUDA bottleneck kernel). ``--train`` profiles path 3's train step
 instead (T2 of ``chip_smoke.py``: bf16 ResNet-50, batch 64 = P 16 x K 4 at
 256x128, inputs on the card): after 5 warm-up steps, a ``torch.profiler``
 window over 5 steps, with the device's busy and idle share, the kernels
-with the most device time and the device time by kind of kernel.
+with the most device time and the device time by kind of kernel;
+``--remat`` profiles the same step with ``remat=True`` (each residual
+block recomputed in the backward pass).
 Otherwise it prints, after a warm-up:
 
 * device time of each stage of ``cluster_groups`` per group (CUDA events,
@@ -92,7 +94,7 @@ KINDS = (("optimizer (multi-tensor)", ("multi_tensor", "foreach")),
          ("elementwise", ("elementwise", "vectorized", "unrolled")))
 
 
-def profile_train(dev, smi: str) -> int:
+def profile_train(dev, smi: str, remat: bool = False) -> int:
     """Path 3's bf16 train step (T2 of chip_smoke.py) under the profiler."""
     ds = datasets.create("dukemtmc", scale=0.2, seed=0)
     model = models.create("resnet50", num_features=0, num_parts=3, dtype=torch.bfloat16)
@@ -100,7 +102,8 @@ def profile_train(dev, smi: str) -> int:
     model.to(dev, memory_format=torch.channels_last)
     images, labels = pk_batch(ds, 16, 4)
     images, labels = images.to(dev), labels.to(dev)
-    step = make_train_step(model, make_optimizer(model.parameters(), 1e-3), num_parts=3)
+    step = make_train_step(model, make_optimizer(model.parameters(), 1e-3), num_parts=3,
+                           remat=remat)
     gen = torch.Generator(device=dev).manual_seed(2)
     for _ in range(5):
         step(images, labels, gen)
@@ -131,7 +134,7 @@ def profile_train(dev, smi: str) -> int:
         ms = e.self_device_time_total / 1e3 / steps
         print(f"  {ms:8.3f} ms a step  x{e.count // steps:<4} {e.key[:100]}")
         top.append({"kernel": e.key[:100], "ms_per_step": ms, "count_per_step": e.count / steps})
-    print(json.dumps({"train_window_ms_host": window_s * 1e3, "steps": steps,
+    print(json.dumps({"remat": remat, "train_window_ms_host": window_s * 1e3, "steps": steps,
                       "device_busy_ms": busy_ms,
                       "device_idle_share": 1 - busy_ms / (window_s * 1e3),
                       "launches_per_step": launches / steps, "ms_per_step_by_kind": kinds,
@@ -145,7 +148,11 @@ def main() -> int:
     mode.add_argument("--fused-eval", action="store_true",
                       help="extract with fused_eval=True (the CUDA bottleneck kernel)")
     mode.add_argument("--train", action="store_true", help="profile path 3's train step")
+    parser.add_argument("--remat", action="store_true",
+                        help="with --train: the step with remat=True")
     args = parser.parse_args()
+    if args.remat and not args.train:
+        parser.error("--remat needs --train")
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
@@ -154,7 +161,7 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     dev = resolve_device()
     if args.train:
-        return profile_train(dev, smi)
+        return profile_train(dev, smi, args.remat)
     batches, model = main_path_inputs(dev)
     if args.fused_eval:
         model = path_model(dev, fused_eval=True)

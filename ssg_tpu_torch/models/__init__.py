@@ -1,8 +1,24 @@
-"""Model factory (counterpart of ``ssg_tpu.models``)."""
+"""Model factory (counterpart of ``ssg_tpu.models``). ``inception`` is not
+ported yet (ROADMAP A10)."""
 
-from ssg_tpu_torch.models.resnet import SSGResNet, resnet50
+from ssg_tpu_torch.models.resnet import (
+    BasicBlock,
+    Bottleneck,
+    SSGResNet,
+    resnet18,
+    resnet34,
+    resnet50,
+    resnet101,
+    resnet152,
+)
 
-_FACTORY = {"resnet50": resnet50}
+_FACTORY = {
+    "resnet18": resnet18,
+    "resnet34": resnet34,
+    "resnet50": resnet50,
+    "resnet101": resnet101,
+    "resnet152": resnet152,
+}
 
 
 def names() -> list[str]:
@@ -16,4 +32,5 @@ def create(name: str, **kwargs) -> SSGResNet:
     return _FACTORY[name](**kwargs)
 
 
-__all__ = ["SSGResNet", "create", "names", "resnet50"]
+__all__ = ["BasicBlock", "Bottleneck", "SSGResNet", "create", "names", "resnet18", "resnet34",
+           "resnet50", "resnet101", "resnet152"]

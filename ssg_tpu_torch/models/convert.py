@@ -1,9 +1,14 @@
-"""JAX (Flax) variables -> the port's ``state_dict``.
+"""Checkpoints of other layouts -> the port's ``state_dict``.
 
-The port's own copy of the mapping in ``ssg_tpu/models/convert.py``
-(``flax_to_torch``): it turns the JAX package's ``{'params', 'batch_stats'}``
-numpy tree of an ``SSGResNet`` into tensors that
-``ssg_tpu_torch.models.resnet.SSGResNet.load_state_dict`` takes:
+``load_torch_checkpoint`` reads a reference or torchvision ``.pth`` /
+``.tar`` file (the port's own copy of ``ssg_tpu/models/convert.py``'s
+reader, without the conversion to Flax); ``torch_state_dict`` converts a
+file already loaded. ``from_jax_variables`` maps JAX
+variables: the port's own copy of the mapping in
+``ssg_tpu/models/convert.py`` (``flax_to_torch``), which turns the JAX
+package's ``{'params', 'batch_stats'}`` numpy tree of an ``SSGResNet``
+into tensors that ``ssg_tpu_torch.models.resnet.SSGResNet.load_state_dict``
+takes:
 
   conv ``kernel`` (kh, kw, I, O) -> ``weight`` (O, I, kh, kw)
   dense ``kernel`` (I, O)        -> ``weight`` (O, I)
@@ -15,6 +20,7 @@ numpy tree of an ``SSGResNet`` into tensors that
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Any, Mapping
 
@@ -60,3 +66,32 @@ def from_jax_variables(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     walk(variables.get("params", {}), "")
     walk(variables.get("batch_stats", {}), "")
     return out
+
+
+def torch_state_dict(blob: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A loaded reference checkpoint (``{"state_dict": ..., "epoch": ...}``,
+    the reference's ``save_checkpoint`` format, SURVEY.md §2 #13) or bare
+    state_dict, as a state_dict that ``SSGResNet`` loads.
+
+    DataParallel's ``module.`` prefix is stripped. A plain torchvision
+    ResNet (``conv1.weight``, no ``backbone.`` keys: the ImageNet start the
+    reference trains from) gets the ``backbone.`` prefix and loses its
+    ``fc.*`` classifier; such a file holds no SSG heads. Every BatchNorm
+    gets a ``num_batches_tracked`` entry where the file has none, as the
+    port's BatchNorm keeps one.
+    """
+    sd = blob.get("state_dict", blob)
+    sd = {k.removeprefix("module."): v for k, v in sd.items()}
+    if "conv1.weight" in sd and "backbone.conv1.weight" not in sd:
+        sd = {f"backbone.{k}": v for k, v in sd.items() if not k.startswith("fc.")}
+    for key in [k for k in sd if k.endswith(".running_mean")]:
+        sd.setdefault(key.removesuffix("running_mean") + "num_batches_tracked",
+                      torch.zeros((), dtype=torch.int64))
+    return sd
+
+
+def load_torch_checkpoint(path: str | os.PathLike) -> dict[str, torch.Tensor]:
+    """Read a reference or torchvision ``.pth`` / ``.tar`` file, unpickling
+    tensors and plain containers only (``weights_only``), into a state_dict
+    that ``SSGResNet`` loads (``torch_state_dict``)."""
+    return torch_state_dict(torch.load(path, map_location="cpu", weights_only=True))

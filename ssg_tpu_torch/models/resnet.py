@@ -23,6 +23,18 @@ half, lower half — each with its own head.
   ``downsample.0/1``, ``feat_whole``, ``feat_bn_whole``,
   ``classifier_whole``), so ``models/convert.py`` maps the JAX variables
   one to one.
+* ``block``: ``Bottleneck`` (resnet50/101/152, expansion 4) or
+  ``BasicBlock`` (resnet18/34, expansion 1); a block builds its downsample
+  only where the residual's shape differs, as JAX's do.
+* ``remat`` (``forward(x, remat=True)``, the train step's option): each
+  residual block runs under ``torch.utils.checkpoint``, so the backward
+  pass recomputes the block's inner activations from its saved input. A
+  block is the granularity that saves memory: one checkpoint around the
+  whole model would keep its recomputation's activations alive as long.
+  The recomputation re-runs train-mode BatchNorm; ``recomputing`` makes
+  each BN normalise with the batch statistics there and leave its running
+  statistics (and Flax's correction) alone, so the statistics move once a
+  step, as without remat.
 * ``fused_eval`` (off by default, as in JAX): in eval mode each identity
   bottleneck (stride 1, ``cin == 4 * features``) folds its BatchNorms into
   the conv weights and runs ``ops.bottleneck.fused_bottleneck`` (the CUDA
@@ -36,15 +48,35 @@ conv and is not ported.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ssg_tpu_torch.ops.bottleneck import fold_bn, fused_bottleneck
 
 PART_NAMES = ("whole", "up", "down")
+
+_state = threading.local()  # .recomputing: inside a checkpoint's recomputation
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Marks a checkpoint's recomputation (the backward pass may run it on
+    another thread than the forward, hence the thread-local flag)."""
+    _state.recomputing = True
+    try:
+        yield
+    finally:
+        _state.recomputing = False
+
+
+def _checkpoint_contexts():
+    return contextlib.nullcontext(), recomputing()
 
 
 class Conv2d(nn.Conv2d):
@@ -87,12 +119,25 @@ class _FlaxRunningVariance:
     bump the running variance's version either: its backward saved it.
     ``num_batches_tracked`` (PyTorch's counter for a cumulative average)
     is not kept: the momentum is fixed. Eval mode normalises with the
-    running statistics. Both call ``F.batch_norm`` directly."""
+    running statistics. Both call ``F.batch_norm`` directly. Inside a
+    checkpoint's recomputation (``recomputing``) it normalises with the
+    batch statistics and updates none of the module's."""
+
+    _recompute_stats = None  # (mean, var) scratch for the recomputation
 
     def forward(self, x):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
+        if getattr(_state, "recomputing", False):
+            # The saved tensors must match the forward's, so the call keeps
+            # its running statistics, as scratch ones that momentum 0 leaves
+            # as they are: the same kernel, the same outputs.
+            scratch = self._recompute_stats
+            if scratch is None or scratch[0].device != x.device:
+                scratch = self._recompute_stats = (torch.zeros_like(self.running_mean),
+                                                   torch.ones_like(self.running_var))
+            return F.batch_norm(x, *scratch, self.weight, self.bias, True, 0.0, self.eps)
         n = x.numel() // x.shape[1]
         rv = self.running_var.data
         before = rv * ((1.0 - self.momentum) / n)
@@ -108,6 +153,31 @@ class BatchNorm2d(_FlaxRunningVariance, nn.BatchNorm2d):
 
 class BatchNorm1d(_FlaxRunningVariance, nn.BatchNorm1d):
     pass
+
+
+class BasicBlock(nn.Module):
+    """torchvision BasicBlock (resnet18/34): 3x3(stride) -> 3x3 + residual.
+    ``fused_eval`` is accepted and unused, as in JAX."""
+
+    expansion = 1
+
+    def __init__(self, cin: int, features: int, stride: int = 1, fused_eval: bool = False):
+        super().__init__()
+        self.conv1 = Conv2d(cin, features, 3, stride)
+        self.bn1 = BatchNorm2d(features, eps=1e-5)
+        self.conv2 = Conv2d(features, features, 3)
+        self.bn2 = BatchNorm2d(features, eps=1e-5)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = None
+        if stride != 1 or cin != features:
+            self.downsample = nn.Sequential(Conv2d(cin, features, 1, stride),
+                                            BatchNorm2d(features, eps=1e-5))
+
+    def forward(self, x):
+        residual = x if self.downsample is None else self.downsample(x)
+        y = self.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        return self.relu(y + residual)
 
 
 class Bottleneck(nn.Module):
@@ -177,7 +247,7 @@ class Bottleneck(nn.Module):
 
 class ResNetBackbone(nn.Module):
     def __init__(self, stage_sizes: Sequence[int], last_stride: int = 2,
-                 fused_eval: bool = False):
+                 fused_eval: bool = False, block: type = Bottleneck):
         super().__init__()
         self.conv1 = Conv2d(3, 64, 7, 2)
         self.bn1 = BatchNorm2d(64, eps=1e-5)
@@ -189,17 +259,19 @@ class ResNetBackbone(nn.Module):
                 last_stride if stage == len(stage_sizes) - 1 else 2)
             blocks = []
             for blk in range(num_blocks):
-                blocks.append(Bottleneck(cin, 64 * 2**stage, stride if blk == 0 else 1,
-                                         fused_eval))
-                cin = 64 * 2**stage * Bottleneck.expansion
+                blocks.append(block(cin, 64 * 2**stage, stride if blk == 0 else 1, fused_eval))
+                cin = 64 * 2**stage * block.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
         self.num_stages = len(stage_sizes)
         self.out_channels = cin
 
-    def forward(self, x):
+    def forward(self, x, remat: bool = False):
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        remat = remat and torch.is_grad_enabled()
         for stage in range(self.num_stages):
-            x = getattr(self, f"layer{stage + 1}")(x)
+            for blk in getattr(self, f"layer{stage + 1}"):
+                x = (checkpoint(blk, x, use_reentrant=False, preserve_rng_state=True,
+                                context_fn=_checkpoint_contexts) if remat else blk(x))
         return x  # (B, C, h, w) conv5 feature map
 
 
@@ -219,9 +291,9 @@ class SSGResNet(nn.Module):
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), num_features: int = 0,
                  dropout: float = 0.0, num_classes: int = 0, num_parts: int = 3,
                  norm: bool = True, last_stride: int = 2, dtype: torch.dtype = torch.float32,
-                 fused_eval: bool = False):
+                 fused_eval: bool = False, block: type = Bottleneck):
         super().__init__()
-        self.backbone = ResNetBackbone(stage_sizes, last_stride, fused_eval)
+        self.backbone = ResNetBackbone(stage_sizes, last_stride, fused_eval, block)
         self.num_parts = num_parts
         self.norm = norm
         self.dtype = dtype
@@ -252,9 +324,9 @@ class SSGResNet(nn.Module):
                 m.reset_parameters()
         return self
 
-    def forward(self, x) -> dict[str, torch.Tensor]:
+    def forward(self, x, remat: bool = False) -> dict[str, torch.Tensor]:
         x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC -> NCHW view
-        fmap = self.backbone(x)
+        fmap = self.backbone(x, remat)
         h = fmap.shape[2]
         # max(h // 2, 1): a height-1 map would leave the upper slice empty.
         pools = [
@@ -281,6 +353,16 @@ class SSGResNet(nn.Module):
         return out
 
 
-def resnet50(**kwargs) -> SSGResNet:
-    kwargs.setdefault("stage_sizes", (3, 4, 6, 3))
-    return SSGResNet(**kwargs)
+def _make(stage_sizes, block):
+    def ctor(**kwargs) -> SSGResNet:
+        kwargs.setdefault("stage_sizes", stage_sizes)
+        return SSGResNet(block=block, **kwargs)
+
+    return ctor
+
+
+resnet18 = _make((2, 2, 2, 2), BasicBlock)
+resnet34 = _make((3, 4, 6, 3), BasicBlock)
+resnet50 = _make((3, 4, 6, 3), Bottleneck)
+resnet101 = _make((3, 4, 23, 3), Bottleneck)
+resnet152 = _make((3, 8, 36, 3), Bottleneck)

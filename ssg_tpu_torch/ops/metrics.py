@@ -15,24 +15,40 @@ from __future__ import annotations
 import torch
 
 
+def sorted_masks(distmat: torch.Tensor, query_ids: torch.Tensor, gallery_ids: torch.Tensor,
+                 query_cams: torch.Tensor, gallery_cams: torch.Tensor,
+                 col_mask: torch.Tensor | None = None, separate_camera_set: bool = False):
+    """Each query's gallery in ascending distance and its masks, (Q, G)
+    each: ``(order, matches, valid)``. ``valid`` leaves out the entries of
+    the query's own identity and camera (open-reid rule), with
+    ``separate_camera_set`` every entry of its camera, and the columns
+    where ``col_mask`` is False."""
+    order = torch.argsort(distmat, dim=1, stable=True)
+    g_ids = gallery_ids[order]
+    g_cams = gallery_cams[order]
+    matches = g_ids == query_ids[:, None]
+    valid = (g_ids != query_ids[:, None]) | (g_cams != query_cams[:, None])
+    if separate_camera_set:
+        valid &= g_cams != query_cams[:, None]
+    if col_mask is not None:
+        valid &= col_mask[order]
+    return order, matches, valid
+
+
 def rank_stats_masked(distmat: torch.Tensor, query_ids: torch.Tensor, gallery_ids: torch.Tensor,
                       query_cams: torch.Tensor, gallery_cams: torch.Tensor,
                       row_mask: torch.Tensor | None = None,
-                      col_mask: torch.Tensor | None = None):
-    """(ap_sum, cmc_sum (100,), n_valid) over the rows of ``distmat`` (Q, G).
+                      col_mask: torch.Tensor | None = None,
+                      separate_camera_set: bool = False, pad: int = 100):
+    """(ap_sum, cmc_sum (pad,), n_valid) over the rows of ``distmat`` (Q, G).
 
     Rows where ``row_mask`` is False contribute nothing; columns where
     ``col_mask`` is False are left out of every row's valid sublist, as the
-    protocol's junk filtering leaves entries out.
+    protocol's junk filtering leaves entries out. ``separate_camera_set``
+    and ``pad`` (the curve's length) serve ``evaluation_metrics.cmc``.
     """
-    order = torch.argsort(distmat, dim=1, stable=True)  # ascending distance
-    g_ids = gallery_ids[order]  # (Q, G)
-    g_cams = gallery_cams[order]
-
-    matches = g_ids == query_ids[:, None]
-    valid = (g_ids != query_ids[:, None]) | (g_cams != query_cams[:, None])
-    if col_mask is not None:
-        valid = valid & col_mask[order]
+    _, matches, valid = sorted_masks(distmat, query_ids, gallery_ids, query_cams, gallery_cams,
+                                     col_mask, separate_camera_set)
     rel = matches & valid
 
     # Rank of each gallery position within the valid sublist (1-indexed).
@@ -51,7 +67,7 @@ def rank_stats_masked(distmat: torch.Tensor, query_ids: torch.Tensor, gallery_id
     # CMC (first_match_break): rank of the first hit in the valid sublist.
     big = float(distmat.shape[1] + 1)
     first_hit = torch.where(rel, rank_in_valid, big).amin(1)  # 1-indexed
-    ks = torch.arange(1, 101, dtype=torch.float32, device=distmat.device)
+    ks = torch.arange(1, pad + 1, dtype=torch.float32, device=distmat.device)
     hits = (first_hit[:, None] <= ks[None, :]) & has_match[:, None]
     cmc_sum = hits.float().sum(0)
     return ap_sum, cmc_sum, has_match.sum()

@@ -4,12 +4,12 @@ Counterpart of ``ssg_tpu/train/trainer.py``, which rebuilds the reference's
 [reid/trainers.py] (SURVEY.md §2 #5, §3.4). One step holds the augmentation
 on the card (crop, flip, normalise), the train-mode forward of all part
 branches, a batch-hard triplet loss per branch against that branch's own
-pseudo-labels (plus the SSG++ cross-entropy on the identity row), the
-backward pass and the AdamW update, in PyTorch's idiom: the step updates
-the model and the optimizer in place. Nothing in it waits for the device;
-``Trainer`` reads the losses back only every ``print_freq`` steps. The host
-renders uint8 batches on a producer thread (``data.prefetch``) into pinned
-memory and uploads them without blocking.
+pseudo-labels (plus the SSG++ cross-entropy on the identity row, or the
+OIM term), the backward pass and the AdamW update, in PyTorch's idiom: the
+step updates the model, the optimizer and the OIM table in place. Nothing
+in it waits for the device; ``Trainer`` reads the losses back only every
+``print_freq`` steps. The host renders uint8 batches on a producer thread
+(``data.prefetch``) into pinned memory and uploads them without blocking.
 
 bf16 policy: the model computes its backbone in bf16 from fp32 master
 weights, the optimizer state is fp32 and the losses are fp32.
@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from ssg_tpu_torch._device import resolve_device
 from ssg_tpu_torch.data import transforms
 from ssg_tpu_torch.data.prefetch import prefetch
+from ssg_tpu_torch.loss.oim import oim_loss
 from ssg_tpu_torch.ops.triplet import batch_hard_triplet_loss
 from ssg_tpu_torch.train.schedule import set_learning_rate
 from ssg_tpu_torch.utils.meters import AverageMeter
@@ -34,8 +35,9 @@ from ssg_tpu_torch.utils.meters import AverageMeter
 
 def make_train_step(model, optimizer: torch.optim.Optimizer, margin: float = 0.3,
                     num_parts: int = 3, ce_weight: float = 0.0, height: int = 256,
-                    width: int = 128, remat: bool = False,
-                    oim_weight: float = 0.0) -> Callable:
+                    width: int = 128, remat: bool = False, oim_weight: float = 0.0,
+                    oim_temperature: float = 0.1, oim_momentum: float = 0.5,
+                    lut: torch.Tensor | None = None) -> Callable:
     """Build the SSG train step.
 
     ``step(images_u8 (B, H, W, 3), labels, generator, crops=None) ->
@@ -49,13 +51,19 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, margin: float = 0.3
     from ``crops = (boxes, flips)`` as ``transforms.draw_crops`` returns
     them. Dropout draws from the device's default generator.
 
-    ``remat`` and the OIM loss (``oim_weight > 0``) are not ported yet.
+    ``oim_weight > 0`` adds the Online Instance Matching loss
+    (``loss/oim.py``) on the whole-body embedding ``emb[0]`` in fp32,
+    L2-normalised (floor 1e-12), against the identity row
+    ``labels[num_parts]``. ``lut`` is its (num_classes, F) fp32 table on the
+    model's device; the step moves the matched rows in place after the
+    optimizer step.
+
+    ``remat``: each residual block recomputes its activations in the
+    backward pass (``models/resnet.py``): less memory for one more forward
+    of the backbone, with the same loss, gradients and BatchNorm statistics.
     """
-    if remat:
-        raise NotImplementedError("remat=True is not ported yet (ROADMAP A, next slice: remat)")
-    if oim_weight > 0.0:
-        raise NotImplementedError("oim_weight > 0: the OIM loss is not ported yet "
-                                  "(ROADMAP A, next slice: OIM)")
+    if oim_weight > 0.0 and lut is None:
+        raise ValueError("oim_weight > 0 needs the OIM table: pass lut=")
 
     def step(images_u8: torch.Tensor, labels: torch.Tensor, generator=None, crops=None):
         if crops is None:
@@ -63,7 +71,7 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, margin: float = 0.3
         x = transforms.normalize_float(
             transforms.crop_flip(images_u8, *crops, height, width), torch.float32)
         model.train()
-        out = model(x)
+        out = model(x, remat=remat)
         emb = out["embeddings"]  # (num_parts, B, F)
         total = emb.new_zeros(())
         precs = []
@@ -78,9 +86,17 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, margin: float = 0.3
             for g in range(num_parts):
                 ce = F.cross_entropy(out["logits"][g], id_labels.clamp_min(0), reduction="none")
                 total = total + ce_weight * torch.where(mask, ce, 0.0).sum() / n
+        new_lut = None
+        if oim_weight > 0.0:
+            w = emb[0].float()  # whole-body branch
+            w = w / w.norm(dim=1, keepdim=True).clamp_min(1e-12)
+            oim, new_lut = oim_loss(lut, w, labels[num_parts], oim_temperature, oim_momentum)
+            total = total + oim_weight * oim
         optimizer.zero_grad(set_to_none=True)
         total.backward()
         optimizer.step()
+        if new_lut is not None:
+            lut.copy_(new_lut)
         return {"loss": total.detach(), "prec": torch.stack(precs).mean()}
 
     return step

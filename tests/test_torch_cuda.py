@@ -12,6 +12,9 @@ import pytest
 import torch
 
 from ssg_tpu_torch import api, models, resolve_device
+from ssg_tpu_torch.data import transforms
+from ssg_tpu_torch.evaluation_metrics import accuracy, cmc, mean_ap
+from ssg_tpu_torch.loss import OIMLoss
 from ssg_tpu_torch.ops import bottleneck as bn_mod
 from ssg_tpu_torch.ops import bottleneck_stage as stage_mod
 from ssg_tpu_torch.ops import distance as dist_mod
@@ -20,6 +23,8 @@ from ssg_tpu_torch.ops.bottleneck import bf16_ulp_error, bottleneck_ref, fused_b
 from ssg_tpu_torch.ops.bottleneck_stage import fused_bottleneck_stage, stage_ref
 from ssg_tpu_torch.ops.distance import pairwise_distance, pairwise_distance_ref
 from ssg_tpu_torch.ops.l1 import l1_distance, l1_distance_ref
+from ssg_tpu_torch.train.schedule import make_optimizer
+from ssg_tpu_torch.train.trainer import make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -347,3 +352,72 @@ def test_fused_eval_fp32_model_matches_unfused(cuda):
     assert bn_mod.launches == before + 12  # the 12 identity blocks of ResNet-50
     assert a.dtype == b.dtype == torch.float32 and bool(torch.isfinite(b).all())
     assert float(((a - b).norm(dim=-1) / a.norm(dim=-1)).max()) <= 1e-4
+
+
+# ---- the training and evaluation surface on the card ------------------------------
+
+def test_metrics_card_matches_cpu(gen, cuda):
+    # Quantised distances (many ties, ranked in gallery order by the stable
+    # sort): first-match curves and accuracy exact, allshots and mAP within
+    # 1e-6 (fp32 sums in another order); single_gallery_shot exact where
+    # each identity has one valid gallery image, so the draw decides nothing.
+    q_ids, g_ids = gen.integers(0, 30, 120), gen.integers(0, 30, 500)
+    q_cams, g_cams = gen.integers(0, 4, 120), gen.integers(0, 4, 500)
+    dist = (gen.integers(0, 16, (120, 500)) / 4.0).astype(np.float32)
+    args = (dist - (q_ids[:, None] == g_ids[None, :]), q_ids, g_ids, q_cams, g_cams)
+    for sep in (False, True):
+        for fmb in (False, True):
+            kw = dict(topk=150, separate_camera_set=sep, first_match_break=fmb)
+            card, cpu = cmc(*args, device=cuda, **kw), cmc(*args, device="cpu", **kw)
+            np.testing.assert_allclose(card, cpu, rtol=0, atol=0.0 if fmb else 1e-6)
+    assert mean_ap(*args) == pytest.approx(mean_ap(*args, device="cpu"), rel=0, abs=1e-6)
+    logits = gen.integers(0, 3, (64, 10)).astype(np.float32)
+    target = gen.integers(0, 10, 64)
+    assert accuracy(logits, target, (1, 5)) == accuracy(logits, target, (1, 5), device="cpu")
+    single = (gen.normal(size=(24, 12)).astype(np.float32), np.arange(12).repeat(2),
+              np.arange(12), np.zeros(24, int), np.ones(12, int))
+    for fmb in (False, True):
+        kw = dict(topk=10, single_gallery_shot=True, first_match_break=fmb)
+        np.testing.assert_array_equal(cmc(*single, **kw), cmc(*single, device="cpu", **kw))
+
+
+def test_oim_loss_defaults_to_the_card(gen, cuda):
+    oim = OIMLoss(8, 10)
+    assert oim.lut.device.type == "cuda"
+    feats = torch.nn.functional.normalize(torch.from_numpy(gen.normal(size=(6, 8))).float(), dim=1)
+    labels = torch.tensor([1, 1, 4, -1, 7, 4])
+    loss = oim(feats.to(cuda), labels.to(cuda))
+    assert bool(torch.isfinite(loss))
+    norms = oim.lut.norm(dim=1).cpu()
+    assert torch.allclose(norms[[1, 4, 7]], torch.ones(3), atol=1e-6)
+    assert not bool(oim.lut.cpu()[[0, 2, 3, 5, 6, 8, 9]].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_remat_step_equals_plain_step_on_card(gen, cuda, dtype, monkeypatch):
+    # The same step with and without remat, from the same weights, crops
+    # and dropout draws, on the card: the recomputation runs the same
+    # kernels, so loss, gradients and BatchNorm statistics are equal bit for
+    # bit. cuDNN's fp32 weight gradients may differ from run to run in the
+    # last bits (the order of their sums), so its deterministic ones are used.
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    kw = dict(stage_sizes=(1, 1), num_features=16, num_classes=4, dropout=0.3, dtype=dtype)
+    plain = models.create("resnet50", **kw).reset_parameters(torch.Generator().manual_seed(0))
+    remat = models.create("resnet50", **kw)
+    remat.load_state_dict(plain.state_dict())
+    images = torch.from_numpy(gen.integers(0, 256, size=(8, 128, 64, 3), dtype=np.uint8))
+    labels = torch.from_numpy(np.stack([np.repeat(np.arange(2), 4)] * 4))
+    crops = transforms.draw_crops(torch.Generator(device=cuda).manual_seed(1), 8, 128, 64)
+    losses = []
+    for model, on in ((plain, False), (remat, True)):
+        model.to(cuda, memory_format=torch.channels_last)
+        step = make_train_step(model, make_optimizer(model.parameters(), 1e-3), num_parts=3,
+                               ce_weight=0.5, height=128, width=64, remat=on)
+        torch.manual_seed(5)  # the dropout draws
+        losses.append(float(step(images.to(cuda), labels.to(cuda), crops=crops)["loss"]))
+    assert losses[1] == losses[0]
+    for (name, p), q in zip(plain.named_parameters(), remat.parameters()):
+        assert torch.equal(q.grad, p.grad), (name, float((q.grad - p.grad).abs().max()))
+    remat_state = remat.state_dict()
+    for name, t in plain.state_dict().items():
+        assert torch.equal(remat_state[name], t), name

@@ -365,21 +365,24 @@ def test_adamw_matches_optax(rng):
         assert lr_at(*args) == jax_lr_at(*args)
 
 
-def test_train_step_reduces_loss_and_refuses_unported(rng):
-    tm = models.create("resnet50", stage_sizes=(1, 1), num_features=32)
-    tm.reset_parameters(torch.Generator().manual_seed(0))
-    optimizer = make_optimizer(tm.parameters(), 1e-3)
-    step = make_train_step(tm, optimizer, num_parts=3, height=32, width=16)
+def test_train_step_reduces_loss_plain_remat_and_oim(rng):
     base = (rng.random((4, 32, 16, 3)) * 255).astype(np.uint8)
     images = torch.from_numpy(np.repeat(base, 4, axis=0))
-    labels = torch.from_numpy(np.tile(np.repeat(np.arange(4), 4)[None], (3, 1)))
-    g = torch.Generator().manual_seed(1)
-    losses = [float(step(images, labels, g)["loss"]) for _ in range(8)]
-    assert np.isfinite(losses).all() and losses[-1] < losses[0]
-    with pytest.raises(NotImplementedError, match="remat"):
-        make_train_step(tm, optimizer, remat=True)
-    with pytest.raises(NotImplementedError, match="OIM"):
-        make_train_step(tm, optimizer, oim_weight=0.1)
+    labels = torch.from_numpy(np.tile(np.repeat(np.arange(4), 4)[None], (4, 1)))
+    for kw in ({}, {"remat": True}, {"oim_weight": 1.0, "lut": torch.zeros(6, 32)}):
+        tm = models.create("resnet50", stage_sizes=(1, 1), num_features=32)
+        tm.reset_parameters(torch.Generator().manual_seed(0))
+        step = make_train_step(tm, make_optimizer(tm.parameters(), 1e-3), num_parts=3,
+                               height=32, width=16, **kw)
+        g = torch.Generator().manual_seed(1)
+        losses = [float(step(images, labels, g)["loss"]) for _ in range(8)]
+        assert np.isfinite(losses).all() and losses[-1] < losses[0], kw
+    # The OIM table moved its four classes to unit rows and left the rest.
+    norms = kw["lut"].norm(dim=1)
+    np.testing.assert_allclose(norms[:4].numpy(), 1.0, rtol=1e-6)
+    assert not bool(kw["lut"][4:].any())
+    with pytest.raises(ValueError, match="lut"):
+        make_train_step(tm, make_optimizer(tm.parameters(), 1e-3), oim_weight=0.1)
 
 
 def test_fused_eval_fold_cache_refolds_after_step(rng):
