@@ -5,9 +5,9 @@ Run from the repository root on a machine with a card and ``nvcc``:
 
     python3 chip_smoke.py
 
-It drives two paths through the port's entry points at full width, both on
-bench config-1's workload (``bench.py``): SSG ResNet-50 (bf16, random
-weights from seed 0) extracting 3 part groups from N = 3368 synthetic
+It drives five paths through the port's entry points at full width, the
+first two on bench config-1's workload (``bench.py``): SSG ResNet-50 (bf16,
+random weights from seed 0) extracting 3 part groups from N = 3368 synthetic
 Market-1501 images in batches of 128, then per group k-reciprocal
 re-ranking (k1=20, k2=6, lambda=0.1), rho-quantile eps (rho=1.6e-3) and
 DBSCAN (min_samples=4):
@@ -33,7 +33,20 @@ DBSCAN (min_samples=4):
   --resume`` of the same checkpoint, 1 iteration (fresh target-sized
   heads); P5, the bf16 train step with and without ``remat``; P6,
   ``evaluation_metrics`` (``cmc`` with its flags, ``mean_ap``,
-  ``accuracy``) on the card against the same calls on the CPU.
+  ``accuracy``) on the card against the same calls on the CPU;
+* path 5, large N (``l5_streaming_tile``, ``e1_e2_eval``, ``c1_c2_cluster``),
+  on seeded clustered features at full width (the standard splits' sizes;
+  features, since rendering some 19k images on the host would take
+  minutes): L5, the L1 kernel's general path on the streaming tile, one
+  (512, npad) chunk of a V-like matrix against the whole at E1's npad; E1,
+  ``streaming_rerank_eval`` at the Market-1501 test split (3,368 query and
+  15,913 gallery images, 6,144-d) against the dense ``re_ranking`` +
+  ``evaluate_all``; E2, ``Evaluator.evaluate(rerank=True)`` on the same
+  features, routed to streaming by the unchanged threshold; C1,
+  ``streaming_cluster_groups`` at the DukeMTMC train split (16,522 x 3
+  groups of 2048-d) against the dense ``cluster_groups``, then group 0 with
+  the forced fallback (``band_cap=0``); C2, ``streaming_cluster`` at the
+  MSMT17 train split (32,621) against the dense chain.
 
 It checks them:
 
@@ -66,12 +79,20 @@ It checks them:
    launches, and P4 keeps heads sized to the target; P5's losses and BN
    statistics agree within 1e-3 relative over 5 steps and remat's peak
    memory is below the plain step's; P6's first-match curves and accuracy
-   equal the CPU's, and its allshots curves and mAP are within 1e-6.
+   equal the CPU's, and its allshots curves and mAP are within 1e-6;
+8. runs path 5 and checks it: L5's kernel against its plain version; E1
+   within 1e-4 of the dense mAP and 2 / Q of its rank-1/5/10, with one L1
+   launch a query chunk; E2 equal to E1; C1 and C2 with 99.9 % of points in
+   the dense chain's clusters, equal counts and eps within 1e-5, per group,
+   the fast path engaged on at least one group of C1, and the forced
+   fallback held to the same gates; it prints seconds and peak memory of
+   streaming and dense, and the largest N each would fit on the card,
+   extrapolated from C2.
 
-Any failed check ends the run with a nonzero exit. The last five lines are
-path 3's ``train`` JSON, path 4's ``cli`` JSON, the kernels' JSON, the
-card's name and power limit from ``nvidia-smi``, and ``{"ok": true,
-"device": {...}}``.
+Any failed check ends the run with a nonzero exit. The last six lines are
+path 3's ``train`` JSON, path 4's ``cli`` JSON, path 5's ``large_n`` JSON,
+the kernels' JSON, the card's name and power limit from ``nvidia-smi``, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -101,6 +122,8 @@ from ssg_tpu_torch.ops.bottleneck import bf16_ulp_error, bottleneck_ref, fused_b
 from ssg_tpu_torch.ops.bottleneck_stage import fused_bottleneck_stage, stage_ref
 from ssg_tpu_torch.ops.distance import pairwise_distance, pairwise_distance_ref
 from ssg_tpu_torch.ops.rerank import _encode, _re_ranking_impl
+from ssg_tpu_torch.parallel import (streaming_cluster, streaming_cluster_groups,
+                                    streaming_rerank_eval)
 from ssg_tpu_torch.train.schedule import make_optimizer
 from ssg_tpu_torch.train.ssg_loop import SSGConfig
 from ssg_tpu_torch.train.trainer import make_train_step
@@ -1210,6 +1233,273 @@ def cli_phases(dev: torch.device) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# Path 5, large N: seeded clustered features at full width, at the standard
+# split sizes: evaluation over Evaluator's concat embedding (3 x 2048 = 6144),
+# clustering over the 2048-d part groups.
+STREAM_CHUNK = 512  # streaming's default chunk
+E1_Q, E1_G, E1_IDS, E1_CAMS = 3368, 15913, 751, 6  # Market-1501 test split
+C1_N, C1_IDS, C1_GROUPS = 16522, 702, 3  # DukeMTMC-reID train split
+C2_N, C2_IDS = 32621, 1041  # MSMT17 train split
+FEAT_NOISE = 0.3  # as tests/test_streaming.py::_feats
+# Identity centres are a normal draw in a low-dimensional subspace, scaled
+# to the full width. That is an assumption about re-id embeddings, not a
+# measured property of them. Drawn in 2048 independent directions, the
+# centres put every pair of identities at one distance; the eps quantile
+# then falls in that wall of equal cross-identity distances, and no group
+# takes the fast path (code 27, scripts/torch_streaming_features.py), so
+# the fast-path gate could not hold. Clustering takes 32 directions, the
+# geometry PERF.md's path-5 prediction assumed; fewer directions
+# separate identities more and make the fast path more likely (16 is the
+# best case that script measured). Evaluation takes 8 directions, so that a
+# few identities are close enough to confuse rank-1 (~1 %). The train
+# splits' images per identity are long-tailed: log-normal identity weights
+# with sigma TRAIN_SKEW; the test split's query and gallery images are
+# spread evenly (sigma 0), as the protocol's ~21 gallery images an identity
+# are. Features come identity-ordered, as an extract emits them.
+EVAL_LATENT, CLUSTER_LATENT = 8, 32
+TRAIN_SKEW = 0.8
+E1_MAP_TOL = 1e-4  # streaming against dense re-ranked evaluation: summation order
+E1_ROWS_TOL = 1e-5  # the re-ranked rows E1 ranks against the dense matrix's
+SAME_CLUSTER_MIN = 0.999  # as path 1's gate
+EPS_REL = 1e-5
+
+
+def identities(gen: torch.Generator, n: int, ids: int, skew: float, dev) -> torch.Tensor:
+    """Identity of each of ``n`` images (log-normal identity weights with
+    sigma ``skew``), sorted."""
+    w = torch.exp(skew * torch.randn(ids, generator=gen, device=dev))
+    return torch.multinomial(w, n, replacement=True, generator=gen).sort().values
+
+
+def clustered_features(gen: torch.Generator, assign: torch.Tensor, ids: int, dim: int,
+                       latent: int):
+    """L2-normalised (len(assign), dim) fp32: identity centre + FEAT_NOISE x
+    noise, the centres a normal draw in a random ``latent``-dimensional
+    subspace at the norm of a full-width draw."""
+    dev = assign.device
+    z = torch.randn((ids, latent), generator=gen, device=dev)
+    basis, _ = torch.linalg.qr(torch.randn((dim, latent), generator=gen, device=dev))
+    centres = z @ basis.T * (dim / latent) ** 0.5
+    x = centres[assign] + FEAT_NOISE * torch.randn((assign.shape[0], dim), generator=gen,
+                                                   device=dev)
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def v_like(gen: torch.Generator, n: int, nnz: int, dev) -> torch.Tensor:
+    """(n, n) non-negative rows with ~``nnz`` nonzeros summing to 1 (the
+    shape of the re-ranking's V)."""
+    cols = torch.randint(0, n, (n, nnz), generator=gen, device=dev)
+    v = torch.zeros((n, n), device=dev).scatter_add_(
+        1, cols, torch.rand((n, nnz), generator=gen, device=dev))
+    return v / v.sum(1, keepdim=True)
+
+
+def timed(fn):
+    """(result, host seconds, peak GiB above what was allocated before) of
+    one call, synchronised."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            (torch.cuda.max_memory_allocated() - before) / 2**30)
+
+
+def l5_streaming_tile(dev: torch.device) -> dict:
+    """L5: the L1 kernel's general path (x is not y) on the streaming tile:
+    one (512, npad) chunk of a V-like matrix against the whole (npad, npad)
+    at E1's npad, against the plain version, timed beside its bound and
+    ``torch.cdist(p=1)``."""
+    npad = -(-(E1_Q + E1_G) // STREAM_CHUNK) * STREAM_CHUNK
+    v = v_like(torch.Generator(device=dev).manual_seed(5), npad, 54, dev)
+    x = v[:STREAM_CHUNK]
+    out = l1.l1_distance(x, v)
+    ref = l1.l1_distance_ref(x, v)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    rel = err / float(x.abs().sum(1).max() + v.abs().sum(1).max())
+    check(out.shape == ref.shape and bool(torch.isfinite(out).all()) and rel <= L1_TOL,
+          f"L5: L1 kernel disagrees on the streaming tile: rel {rel:.3e}")
+    r = dict(shape=[STREAM_CHUNK, npad, npad], max_abs_err=err, rel=rel,
+             ms=cuda_ms(lambda: l1.l1_distance(x, v), 5),
+             plain_ms=cuda_ms(lambda: l1.l1_distance_ref(x, v), 1),
+             library_ms=cuda_ms(lambda: torch.cdist(x, v, p=1), 2))
+    r["bound_ms"], r["bound_by"] = l1_bound_ms(STREAM_CHUNK, npad, npad)
+    print(f"L5 l1 streaming tile ({STREAM_CHUNK},{npad}) against ({npad},{npad}): max abs err "
+          f"{err:.3e} (rel {rel:.3e}); kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+          f"torch.cdist {r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}, "
+          f"general), {r['bound_ms'] / r['ms']:.1%} of bound")
+    return r
+
+
+def eval_protocol(dev: torch.device, latent: int = EVAL_LATENT):
+    """E1's features and protocol: Q query and G gallery images of E1_IDS
+    identities on E1_CAMS cameras, 6144-d."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    assign = identities(gen, E1_Q + E1_G, E1_IDS, 0.0, dev)
+    order = torch.randperm(E1_Q + E1_G, generator=gen, device=dev)
+    qi, gi = order[:E1_Q].sort().values, order[E1_Q:].sort().values
+    feats = clustered_features(gen, assign, E1_IDS, 3 * 2048, latent)
+    cams = torch.randint(0, E1_CAMS, (E1_Q + E1_G,), generator=gen, device=dev)
+    a, c = assign.cpu().numpy(), cams.cpu().numpy()
+    return feats[qi], feats[gi], a[qi.cpu()], a[gi.cpu()], c[qi.cpu()], c[gi.cpu()]
+
+
+def e1_e2_eval(dev: torch.device) -> dict:
+    """E1: ``streaming_rerank_eval`` at the Market-1501 test split size
+    against the dense ``re_ranking`` + ``evaluate_all`` of the same
+    features; E2: ``Evaluator.evaluate(rerank=True)`` on those features
+    (a feature stub in place of the model), routed to streaming by the
+    unchanged threshold, must return E1's numbers."""
+    qf, gf, q_ids, g_ids, q_cams, g_cams = eval_protocol(dev)
+    before = l1.launches
+    sdiag = {}
+    (s_map, s_cmc, nv), s_sec, s_peak = timed(lambda: streaming_rerank_eval(
+        qf, gf, q_ids, g_ids, q_cams, g_cams, diag=sdiag))
+    s_launches = l1.launches - before
+    check(s_launches == -(-E1_Q // STREAM_CHUNK),
+          f"E1: the L1 kernel launched {s_launches} times, expected one a query chunk")
+    query = [(f"q{i}", int(p), int(c)) for i, (p, c) in enumerate(zip(q_ids, q_cams))]
+    gallery = [(f"g{i}", int(p), int(c)) for i, (p, c) in enumerate(zip(g_ids, g_cams))]
+
+    s_rows = sdiag.pop("final_rows")
+
+    def dense():
+        full = api.re_ranking(features=torch.cat([qf, gf]))
+        return (api.evaluate_all(full[:E1_Q, E1_Q:], query, gallery),
+                full[:s_rows.shape[0], E1_Q:].clone())
+
+    (d, d_rows), d_sec, d_peak = timed(dense)
+    rows_err = float((s_rows - d_rows).abs().max())
+    del s_rows, d_rows
+    gaps = {"mAP": abs(s_map - d["mAP"])}
+    gaps.update({f"rank{k}": abs(float(s_cmc[k - 1]) - float(d["cmc"][k - 1])) for k in (1, 5, 10)})
+    r = {"query": E1_Q, "gallery": E1_G, "dim": int(qf.shape[1]), "mAP": s_map,
+         "rank1": float(s_cmc[0]), "dense_mAP": d["mAP"], "gaps": gaps, "n_valid": nv,
+         "rows_max_abs_err": rows_err, "streaming_l1_launches": s_launches,
+         "streaming_seconds": s_sec, "dense_seconds": d_sec, "streaming_peak_gib": s_peak,
+         "dense_peak_gib": d_peak}
+    print(f"E1 re-ranked evaluation, {E1_Q} x {E1_G} at {qf.shape[1]}-d: streaming mAP "
+          f"{s_map:.6f} rank-1 {s_cmc[0]:.6f}, dense mAP {d['mAP']:.6f} rank-1 {d['cmc'][0]:.6f}; "
+          f"gaps {gaps}; first query chunk's re-ranked rows against dense: max abs err "
+          f"{rows_err:.3e}; {s_launches} L1 launches; seconds streaming {s_sec:.3f}, dense "
+          f"{d_sec:.3f}; peak above the "
+          f"features: streaming {s_peak:.3f} GiB, dense {d_peak:.3f} GiB")
+    check(rows_err <= E1_ROWS_TOL, f"E1: re-ranked rows differ from dense by {rows_err:.3e}")
+    check(gaps["mAP"] <= E1_MAP_TOL, f"E1: mAP gap {gaps['mAP']:.2e}")
+    check(all(gaps[f"rank{k}"] <= 2.0 / E1_Q for k in (1, 5, 10)), f"E1: CMC gaps {gaps}")
+
+    class FeatureStub(api.Evaluator):
+        def _feats(self, dataset, items):
+            return qf if items is dataset.query else gf
+
+    class Split:
+        pass
+
+    split = Split()
+    split.query, split.gallery = query, gallery
+    check((E1_Q + E1_G) ** 2 * 4 > api.DENSE_RERANK_BYTES, "E2: the split does not cross")
+    (e2, e2_sec, _) = timed(lambda: FeatureStub(None).evaluate(split, rerank=True))
+    check(abs(e2["mAP"] - s_map) <= 1e-6 and np.allclose(e2["cmc"], s_cmc, rtol=0, atol=1e-6),
+          f"E2: Evaluator.evaluate(rerank=True) returned mAP {e2['mAP']}, E1 {s_map}")
+    print(f"E2 Evaluator.evaluate(rerank=True) at {E1_Q} + {E1_G}: routed to streaming, mAP "
+          f"{e2['mAP']:.6f} equal to E1's; {e2_sec:.3f} s")
+    r["e2_seconds"] = e2_sec
+    return r
+
+
+def cluster_gates(what: str, labels, counts, epss, d_labels, d_counts, d_epss) -> list[float]:
+    """Per group: the same-cluster share against the dense chain's labels
+    (>= SAME_CLUSTER_MIN), equal counts, eps within EPS_REL."""
+    shares = []
+    for g in range(len(counts)):
+        share = same_cluster_share(labels[g][None], d_labels[g][None])
+        shares.append(share)
+        check(share >= SAME_CLUSTER_MIN and counts[g] == d_counts[g]
+              and abs(epss[g] - d_epss[g]) <= EPS_REL * d_epss[g],
+              f"{what} group {g}: same cluster {share:.5f}, clusters {counts[g]} against "
+              f"{d_counts[g]}, eps {epss[g]} against {d_epss[g]}")
+    return shares
+
+
+def c1_c2_cluster(dev: torch.device) -> dict:
+    """C1: ``streaming_cluster_groups`` at the DukeMTMC train split size (3
+    groups of 2048-d) against the dense ``cluster_groups``; the fast path
+    must engage on a group; group 0 again with ``band_cap=0`` (the forced
+    fallback). C2: ``streaming_cluster`` at the MSMT17 train split size (one
+    group) against the dense chain. Both report seconds and peak memory."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    assign = identities(gen, C1_N, C1_IDS, TRAIN_SKEW, dev)
+    feats = torch.stack([clustered_features(gen, assign, C1_IDS, 2048, CLUSTER_LATENT)
+                         for _ in range(C1_GROUPS)])
+    diag = {}
+    (s, s_sec, s_peak) = timed(lambda: streaming_cluster_groups(feats, **ANALYTICS, diag=diag))
+    (d, d_sec, d_peak) = timed(lambda: api.cluster_groups(feats, **ANALYTICS))
+    codes = diag["fallback_code"]
+    print(f"C1 streaming_cluster_groups N={C1_N} x {C1_GROUPS} groups of 2048-d: clusters "
+          f"{s[1]} (dense {d[1]}), eps {s[2]} (dense {d[2]}); fallback codes {codes}; "
+          f"seconds streaming {s_sec:.3f}, dense {d_sec:.3f}; peak above the features: "
+          f"streaming {s_peak:.3f} GiB, dense {d_peak:.3f} GiB")
+    for g, dv in enumerate(diag["diag_vec"]):
+        print(f"  group {g} diag: r_lo {dv[0]:.6f} r_hi {dv[1]:.6f} e_lo {dv[2]:.6f} e_hi "
+              f"{dv[3]:.6f} region pairs {int(dv[4])} cand row max {int(dv[5])} cand total "
+              f"{int(dv[6])} group max {int(dv[7])} dbscan rounds {int(dv[8])}; phase seconds "
+              f"{ {k: round(v, 4) for k, v in diag['seconds'][g].items()} }")
+    shares = cluster_gates("C1", *s, *d)
+    check(any(c & (1 | 2 | 4 | 8) == 0 for c in codes),
+          f"C1: the fast path engaged on no group (fallback codes {codes})")
+    fdiag = {}
+    (f, f_sec, _) = timed(lambda: streaming_cluster(feats[0], **ANALYTICS, band_cap=0, diag=fdiag))
+    check(fdiag["band_fallback"], "C1: band_cap=0 did not take the fallback")
+    f_share = cluster_gates("C1 band_cap=0", [f[0]], [f[1]], [f[2]], d[0][:1], d[1][:1],
+                            d[2][:1])
+    print(f"C1 group 0 with band_cap=0 (fallback code {fdiag['fallback_code']}): same cluster "
+          f"{f_share[0]:.6f}, {f[1]} clusters, eps {f[2]}; {f_sec:.3f} s (phases "
+          f"{ {k: round(v, 4) for k, v in fdiag['seconds'].items()} })")
+    c1 = {"n": C1_N, "groups": C1_GROUPS, "clusters": s[1], "eps": s[2], "dense_clusters": d[1],
+          "dense_eps": d[2], "same_cluster": shares, "fallback_codes": codes,
+          "diag_vec": diag["diag_vec"].tolist(), "phase_seconds": diag["seconds"],
+          "streaming_seconds": s_sec, "dense_seconds": d_sec,
+          "streaming_peak_gib": s_peak, "dense_peak_gib": d_peak,
+          "band_cap0": {"fallback_code": fdiag["fallback_code"], "same_cluster": f_share[0],
+                        "clusters": f[1], "eps": f[2], "seconds": f_sec,
+                        "phase_seconds": fdiag["seconds"]}}
+    del feats, s, d
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = clustered_features(gen, identities(gen, C2_N, C2_IDS, TRAIN_SKEW, dev), C2_IDS, 2048,
+                           CLUSTER_LATENT)
+    c2diag = {}
+    (s2, s2_sec, s2_peak) = timed(lambda: streaming_cluster(x, **ANALYTICS, diag=c2diag))
+    (d2, d2_sec, d2_peak) = timed(lambda: api.cluster_groups(x[None], **ANALYTICS))
+    c2_share = cluster_gates("C2", [s2[0]], [s2[1]], [s2[2]], *d2)
+    print(f"C2 streaming_cluster N={C2_N} (2048-d): {s2[1]} clusters (dense {d2[1][0]}), eps "
+          f"{s2[2]} (dense {d2[2][0]}), same cluster {c2_share[0]:.6f}, fallback code "
+          f"{c2diag['fallback_code']}; seconds streaming {s2_sec:.3f} (phases "
+          f"{ {k: round(v, 4) for k, v in c2diag['seconds'].items()} }), dense {d2_sec:.3f}; "
+          f"peak above the features: streaming {s2_peak:.3f} GiB, dense {d2_peak:.3f} GiB")
+    c2 = {"n": C2_N, "clusters": s2[1], "eps": s2[2], "dense_clusters": d2[1][0],
+          "dense_eps": d2[2][0], "same_cluster": c2_share[0],
+          "fallback_code": c2diag["fallback_code"], "phase_seconds": c2diag["seconds"],
+          "streaming_seconds": s2_sec,
+          "dense_seconds": d2_sec, "streaming_peak_gib": s2_peak, "dense_peak_gib": d2_peak}
+    # Peak bytes per N^2 (C1's peak is one group's: the groups run in turn),
+    # and the N at which C2's rate would fill the card: an extrapolation.
+    total = torch.cuda.get_device_properties(0).total_memory
+    for r in (c1, c2):
+        for k in ("streaming", "dense"):
+            r[f"{k}_bytes_per_n2"] = r[f"{k}_peak_gib"] * 2**30 / r["n"] ** 2
+    ceiling = {k: int((total / c2[f"{k}_bytes_per_n2"]) ** 0.5) for k in ("streaming", "dense")}
+    print(f"peak bytes per N^2: C1 streaming {c1['streaming_bytes_per_n2']:.2f}, dense "
+          f"{c1['dense_bytes_per_n2']:.2f}; C2 streaming {c2['streaming_bytes_per_n2']:.2f}, "
+          f"dense {c2['dense_bytes_per_n2']:.2f}; extrapolated from C2 to the card's "
+          f"{total / 2**30:.1f} GiB: largest N streaming ~{ceiling['streaming']}, dense "
+          f"~{ceiling['dense']}")
+    return {"c1": c1, "c2": c2, "ceiling_n_extrapolated": ceiling}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -1370,6 +1660,17 @@ def main() -> int:
     cli = cli_phases(dev)
     kernels[0]["launches_cli"] = {p: cli[p]["l1_launches"] for p in ("p1", "p2", "p3", "p4")}
 
+    # 11. Path 5: large N. L5 first (its launches compare the kernel with
+    # its plain version), then E1, E2, C1 and C2 with the count set to 0.
+    t0 = time.perf_counter()
+    tile = l5_streaming_tile(dev)
+    l1.launches = 0
+    large_n = {"e1": e1_e2_eval(dev), **c1_c2_cluster(dev)}
+    large_n["seconds"] = time.perf_counter() - t0
+    kernels[0]["launches_path5"] = l1.launches
+    check(l1.launches > 0, "path 5 did not launch the L1 kernel")
+    kernels[0]["streaming_tile"] = tile
+
     # Bottleneck and stage rows: per batch of the path (the 12 identity
     # blocks; the four stages), errors in bf16 ulps (bf16_ulp_error).
     for op, row, replaces in (
@@ -1399,6 +1700,7 @@ def main() -> int:
     })
     print(json.dumps({"train": train}))
     print(json.dumps({"cli": cli}))
+    print(json.dumps({"large_n": large_n}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -21,9 +21,14 @@ from ssg_tpu_torch.data.preprocessor import Preprocessor
 from ssg_tpu_torch.ops.distance import pairwise_distance
 from ssg_tpu_torch.ops.metrics import rank_stats
 from ssg_tpu_torch.ops.rerank import _re_ranking_impl, re_ranking
+from ssg_tpu_torch.parallel import streaming_rerank_eval
 
 __all__ = ["extract_features", "re_ranking", "cluster", "cluster_groups", "train",
            "pairwise_distance", "evaluate_all", "Evaluator"]
+
+# Re-ranked evaluation streams (``parallel.streaming_rerank_eval``) once one
+# fp32 (Q+G)^2 matrix would pass this many bytes, as the JAX package does.
+DENSE_RERANK_BYTES = 2**30
 
 
 @torch.no_grad()
@@ -181,12 +186,15 @@ class Evaluator:
         qf = self._feats(dataset, query)
         gf = self._feats(dataset, gallery)
         nq, ng = qf.shape[0], gf.shape[0]
-        if rerank and (nq + ng) ** 2 * 4 > 2**30:
-            # JAX routes this through its streaming V-stripe evaluator,
-            # which the port does not have yet.
-            raise NotImplementedError(
-                f"re-ranked evaluation of {nq} + {ng} images needs the streaming "
-                "evaluator (ROADMAP A8), not ported yet")
+        if rerank and (nq + ng) ** 2 * 4 > DENSE_RERANK_BYTES:
+            # Market-1501 / DukeMTMC test splits and up: the dense chain
+            # would hold some thirty (Q+G)^2 buffers; the streaming
+            # evaluator reduces re-ranked query rows straight into CMC / mAP.
+            mAP, cmc, _ = streaming_rerank_eval(
+                qf, gf, q_ids=[p for _, p, _ in query], g_ids=[p for _, p, _ in gallery],
+                q_cams=[c for _, _, c in query], g_cams=[c for _, _, c in gallery],
+                device=self.device)
+            return _report(mAP, cmc, logger)
         if rerank:
             full = re_ranking(features=torch.cat([qf, gf]), device=self.device)
             distmat = full[:nq, nq:]

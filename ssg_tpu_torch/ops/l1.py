@@ -38,10 +38,13 @@ def _kernel():
 
 def l1_distance_ref(x: torch.Tensor, y: torch.Tensor | None = None,
                     row_chunk: int = 64) -> torch.Tensor:
-    """Plain PyTorch all-pairs L1, fp32, row-chunked (mirrors ``_l1_xla``)."""
+    """Plain PyTorch all-pairs L1, fp32, row-chunked (mirrors ``_l1_xla``).
+    Fewer rows a chunk where ``row_chunk`` rows would broadcast past 2^30
+    elements (the streaming tiles, whose K is N)."""
     y = x if y is None else y
     x = x.float()
     y = y.float()
+    row_chunk = max(1, min(row_chunk, 2**30 // max(y.shape[0] * x.shape[1], 1)))
     out = torch.empty((x.shape[0], y.shape[0]), dtype=torch.float32, device=x.device)
     for s in range(0, x.shape[0], row_chunk):
         out[s:s + row_chunk] = (x[s:s + row_chunk, None, :] - y[None]).abs().sum(-1)

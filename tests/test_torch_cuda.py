@@ -421,3 +421,104 @@ def test_remat_step_equals_plain_step_on_card(gen, cuda, dtype, monkeypatch):
     remat_state = remat.state_dict()
     for name, t in plain.state_dict().items():
         assert torch.equal(remat_state[name], t), name
+
+
+def _clustered(gen, n, ids, dim):
+    centers = gen.normal(size=(ids, dim))
+    x = centers[np.sort(gen.integers(0, ids, n))] + 0.3 * gen.normal(size=(n, dim))
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+def _same_cluster_share(a, b):
+    # The share of points whose cluster (noise alone) is the same set of
+    # points in both labelings: renumbering does not count.
+    same = 0
+    for i in range(a.shape[0]):
+        ca = {j for j in np.flatnonzero(a == a[i])} if a[i] >= 0 else {i}
+        cb = {j for j in np.flatnonzero(b == b[i])} if b[i] >= 0 else {i}
+        same += ca == cb
+    return same / a.shape[0]
+
+
+def test_streaming_cluster_matches_dense_on_card(gen, cuda):
+    # Streaming against the dense chain on the card at a few thousand
+    # points. Each computes its own distance products (chunked against
+    # whole), which may swap near-tied neighbours, so the gate is path 1's:
+    # 99.9 % of points in the same cluster, equal counts, eps within 1e-5.
+    from ssg_tpu_torch.parallel import streaming_cluster
+
+    x = torch.from_numpy(_clustered(gen, 3000, 130, 64)).to(cuda)
+    kw = dict(k1=20, k2=6, lambda_value=0.1, rho=1.6e-3, min_samples=4)
+    dense = api.cluster_groups(x[None], **kw)
+    for band_cap in (None, 0):
+        diag = {}
+        before = l1_mod.launches
+        labels, n_clusters, eps = streaming_cluster(x, chunk=512, band_cap=band_cap, diag=diag,
+                                                    **kw)
+        assert l1_mod.launches > before  # the sample (and the fallbacks) ran the kernel
+        if band_cap == 0:
+            assert diag["band_fallback"] and diag["fallback_code"] & 1
+        assert n_clusters == dense[1][0] > 0
+        assert abs(eps - dense[2][0]) <= 1e-5 * dense[2][0]
+        assert _same_cluster_share(labels, dense[0][0]) >= 0.999
+
+
+def test_streaming_rerank_eval_matches_dense_on_card(gen, cuda):
+    from ssg_tpu_torch.ops.metrics import evaluate_rank
+    from ssg_tpu_torch.parallel import streaming_rerank_eval
+
+    ids = gen.integers(0, 150, 2600)
+    cams = gen.integers(0, 6, 2600)
+    centers = gen.normal(size=(150, 16))
+    x = centers[ids] + 0.6 * gen.normal(size=(2600, 16))
+    x = torch.from_numpy((x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32))
+    qf, gf = x[:400].to(cuda), x[400:].to(cuda)
+    got_map, got_cmc, nv = streaming_rerank_eval(qf, gf, ids[:400], ids[400:], cams[:400],
+                                                 cams[400:])
+    full = api.re_ranking(features=torch.cat([qf, gf]))
+    want = evaluate_rank(full[:400, 400:], *(torch.from_numpy(a).to(cuda) for a in
+                                             (ids[:400], ids[400:], cams[:400], cams[400:])))
+    assert nv > 0
+    assert abs(got_map - float(want["mAP"])) <= 1e-4
+    assert np.abs(got_cmc[:10] - want["cmc"][:10].cpu().numpy()).max() <= 2.0 / 400
+
+
+def test_l1_kernel_general_path_on_a_streaming_tile(gen, cuda):
+    # One 512-row chunk of a V-like matrix against the whole of it: the
+    # general (x is not y) launch the streaming sweeps make.
+    n = 4096
+    cols = torch.from_numpy(gen.integers(0, n, (n, 54))).to(cuda)
+    v = torch.zeros((n, n), device=cuda).scatter_add_(
+        1, cols, torch.from_numpy(gen.random((n, 54)).astype(np.float32)).to(cuda))
+    v /= v.sum(1, keepdim=True)
+    before = l1_mod.launches
+    out = l1_distance(v[:512], v)
+    torch.cuda.synchronize()
+    assert l1_mod.launches == before + 1
+    ref = l1_distance_ref(v[:512], v)
+    assert float((out - ref).abs().max()) <= 1e-5 * 2.0
+
+
+def test_bound_product_is_sound_on_card(gen, cuda):
+    # The screening bound with cuBLAS's fp32-output bf16 product: at or
+    # below the exact re-ranked distance for every pair, near-duplicate
+    # rows included.
+    from ssg_tpu_torch.ops import minsum
+
+    n, width = 512, 2048
+    v = np.zeros((n, width), np.float32)
+    for i in range(n):
+        idx = gen.choice(width, size=gen.integers(1, 80), replace=False)
+        w = gen.random(idx.size).astype(np.float32) + 1e-3
+        v[i, idx] = w / w.sum()
+    v[1] = v[0]
+    v[3] = v[2] * np.float32(1 + 1e-7)
+    vt = torch.from_numpy(v).to(cuda)
+    g = minsum.bound_product(minsum.support_mask(vt), vt)
+    assert g.dtype == torch.float32
+    orig = torch.from_numpy(gen.random((n, n)).astype(np.float32)).to(cuda)
+    fd_lb = minsum.fd_lower(minsum.minsum_upper(g), orig, 0.1).double().cpu().numpy()
+    vd = torch.from_numpy(v).double()
+    ms = torch.stack([torch.minimum(vd[i], vd).sum(1) for i in range(n)]).numpy()
+    fd = np.maximum((1.0 - ms / (2.0 - ms)) * 0.9 + orig.double().cpu().numpy() * 0.1, 0.0)
+    assert (fd_lb <= fd + 1e-6).all(), (fd_lb - fd).max()

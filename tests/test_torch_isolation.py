@@ -34,7 +34,9 @@ def test_import_loads_no_jax():
             "ssg_tpu_torch.ops, ssg_tpu_torch.train.ssg_loop, ssg_tpu_torch.utils, "
             "ssg_tpu_torch.loss, ssg_tpu_torch.evaluation_metrics, "
             "ssg_tpu_torch.train.pretrain, ssg_tpu_torch.cli.pretraining, "
-            "ssg_tpu_torch.cli.selftraining, ssg_tpu_torch.cli.semitraining; "
+            "ssg_tpu_torch.cli.selftraining, ssg_tpu_torch.cli.semitraining, "
+            "ssg_tpu_torch.parallel, ssg_tpu_torch.parallel.streaming, "
+            "ssg_tpu_torch.ops.bits, ssg_tpu_torch.ops.minsum; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ssg_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
