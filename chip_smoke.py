@@ -5,7 +5,7 @@ Run from the repository root on a machine with a card and ``nvcc``:
 
     python3 chip_smoke.py
 
-It drives five paths through the port's entry points at full width, the
+It drives six paths through the port's entry points at full width, the
 first two on bench config-1's workload (``bench.py``): SSG ResNet-50 (bf16,
 random weights from seed 0) extracting 3 part groups from N = 3368 synthetic
 Market-1501 images in batches of 128, then per group k-reciprocal
@@ -46,7 +46,22 @@ DBSCAN (min_samples=4):
   ``streaming_cluster_groups`` at the DukeMTMC train split (16,522 x 3
   groups of 2048-d) against the dense ``cluster_groups``, then group 0 with
   the forced fallback (``band_cap=0``); C2, ``streaming_cluster`` at the
-  MSMT17 train split (32,621) against the dense chain.
+  MSMT17 train split (32,621) against the dense chain;
+* path 6, the on-disk workflow (``data_dir_phases``): D1 writes a raw
+  DukeMTMC-reID tree of P3's target (x0.2: 1120 train, 280 query, 560
+  gallery images) from the renderer, as PPM bytes under the benchmark's
+  names (5 gallery files at 128x64, 3 junk files), and prepares it with
+  ``cli.prepare``; D2, ``cli.selftraining --data_dir --resume <P1>
+  --rerank`` on it (ResNet-50, P3's flags); D3, the Inception at full width
+  (depth 8, width 64, bf16): ``cli.pretraining --arch inception`` on
+  Market-1501 x0.1 for 1 epoch, then ``cli.selftraining --arch inception
+  --data_dir --resume --rerank`` (batch 32), its train step as T2, its
+  extract in turns with ResNet-50's, its fp32 eval on the card against the
+  CPU and remat as P5; D4, KISSME on D2's whole-body features on the card
+  and the CPU, ``DistanceMetric("kissme").train``, ``extract_cnn_feature``,
+  ``profiling.trace`` read back by ``traceview.report_by_scope``,
+  ``device_memory_stats`` and, where h5py is installed,
+  ``FeatureDatabase``.
 
 It checks them:
 
@@ -87,19 +102,34 @@ It checks them:
    the fast path engaged on at least one group of C1, and the forced
    fallback held to the same gates; it prints seconds and peak memory of
    streaming and dense, and the largest N each would fit on the card,
-   extrapolated from C2.
+   extrapolated from C2;
+9. runs path 6 and checks it: D1's split sizes (the raw tree's less the
+   junk), ``meta.json`` and every 256x128 image decoded byte for byte, with
+   the decoder that ran (``decoder: native`` or ``pil``, the native build's
+   error where it failed) and the host decode rates; D2 and D3's
+   selftraining train, evaluate and launch the L1 kernel 4 times, D2's
+   embeddings of the disk images against those of the rendered pixels
+   (per-row cosine >= 0.99999); D3's classifier sized 75 x 1024, its extract
+   1024-d, its fp32 embeddings within 1e-4 of the CPU's, remat as P5; D4's
+   KISSME fits each within the fp32 perturbation estimate of the fp64 fit,
+   ``extract_cnn_feature`` equal to ``api.extract_features``, and the trace
+   holding convolution kernels in its extract scope and the L1 kernel in
+   its clustering scope.
 
-Any failed check ends the run with a nonzero exit. The last six lines are
-path 3's ``train`` JSON, path 4's ``cli`` JSON, path 5's ``large_n`` JSON,
-the kernels' JSON, the card's name and power limit from ``nvidia-smi``, and
-``{"ok": true, "device": {...}}``.
+Any failed check ends the run with a nonzero exit. The last seven lines
+are path 3's ``train`` JSON, path 4's ``cli`` JSON, path 5's ``large_n``
+JSON, path 6's ``data_dir`` JSON, the kernels' JSON, the card's name and
+power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -113,10 +143,16 @@ import torch
 import torch.nn.functional as F
 
 from ssg_tpu_torch import api, models, resolve_device
+from ssg_tpu_torch.cli import prepare as prepare_cli
 from ssg_tpu_torch.cli import pretraining, selftraining, semitraining
 from ssg_tpu_torch.cluster import dbscan, select_eps
-from ssg_tpu_torch.data import Preprocessor, datasets, transforms
+from ssg_tpu_torch.data import Preprocessor, datasets, native_loader, transforms
+from ssg_tpu_torch.data.synthetic import RAW_H, RAW_W
+from ssg_tpu_torch.dist_metric import DistanceMetric
 from ssg_tpu_torch.evaluation_metrics import accuracy, cmc, mean_ap
+from ssg_tpu_torch.feature_extraction import FeatureDatabase, extract_cnn_feature
+from ssg_tpu_torch.feature_extraction import database as feature_database
+from ssg_tpu_torch.metric_learning import KISSME
 from ssg_tpu_torch.ops import _build, bottleneck, bottleneck_stage, distance, l1
 from ssg_tpu_torch.ops.bottleneck import bf16_ulp_error, bottleneck_ref, fused_bottleneck
 from ssg_tpu_torch.ops.bottleneck_stage import fused_bottleneck_stage, stage_ref
@@ -127,7 +163,7 @@ from ssg_tpu_torch.parallel import (streaming_cluster, streaming_cluster_groups,
 from ssg_tpu_torch.train.schedule import make_optimizer
 from ssg_tpu_torch.train.ssg_loop import SSGConfig
 from ssg_tpu_torch.train.trainer import make_train_step
-from ssg_tpu_torch.utils import load_checkpoint
+from ssg_tpu_torch.utils import load_checkpoint, profiling, read_json, traceview
 
 N = 3368
 BATCH = 128
@@ -850,11 +886,13 @@ def t1_step_parity(dev: torch.device, ds) -> dict:
             "worst_grad_err_cpu": worst["cpu"][1], "worst_grad_card_vs_cpu": worst["card_vs_cpu"][1]}
 
 
-def t2_train_step(dev: torch.device, ds) -> dict:
-    """T2: the bf16 train step (fp32 masters) of ResNet-50 at batch 64 = P 16
-    x K 4, 3 parts, on a repeated batch already on the card: 5 warm-up and
-    20 timed steps, each between CUDA events; the loss must fall."""
-    model = models.create("resnet50", num_features=0, num_parts=3, dtype=torch.bfloat16)
+def t2_train_step(dev: torch.device, ds, arch: str = "resnet50") -> dict:
+    """T2: the bf16 train step (fp32 masters) of ``arch`` (ResNet-50; path 6
+    also times the Inception) at batch 64 = P 16 x K 4, 3 parts, on a
+    repeated batch already on the card: 5 warm-up and 20 timed steps, each
+    between CUDA events; the loss must fall. One more step runs under
+    ``profiling.trace`` to count its device events (kernels and copies)."""
+    model = models.create(arch, num_features=0, num_parts=3, dtype=torch.bfloat16)
     model.reset_parameters(torch.Generator().manual_seed(0))
     model.to(dev, memory_format=torch.channels_last)
     images, labels = pk_batch(ds, 16, 4)
@@ -879,17 +917,26 @@ def t2_train_step(dev: torch.device, ds) -> dict:
     host_ms = (time.perf_counter() - t0) * 1e3 / len(events)
     device_ms = statistics.median(s.elapsed_time(e) for s, e in events)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    with tempfile.TemporaryDirectory(prefix="ssg_t2_trace_") as logdir:
+        with profiling.trace(logdir):
+            step(images, labels, gen)
+        with contextlib.redirect_stdout(io.StringIO()):
+            trace = traceview.report_by_scope(logdir)
+    events, busy_ms = trace["device_events"], trace["total_us"] / 1e3
     losses = [float(x) for x in losses]
     share = flop / (device_ms * 1e-3) / BF16_FLOP_PER_S
-    r = {"train_step_ms": device_ms, "host_ms_per_step": host_ms,
+    r = {"arch": arch, "train_step_ms": device_ms, "device_events_per_step": events,
+         "device_busy_ms_per_step": busy_ms, "host_ms_per_step": host_ms,
          "imgs_per_s": 64 / (host_ms * 1e-3), "peak_gib": peak_gib, "tflop_per_step": flop / 1e12,
          "bf16_peak_share": share, "bound_ms": flop / BF16_FLOP_PER_S * 1e3,
          "loss_first5": float(np.mean(losses[:5])), "loss_last5": float(np.mean(losses[-5:]))}
-    print(f"T2 bf16 step, ResNet-50 batch 64 (P 16 x K 4) at 256x128: median {device_ms:.3f} ms "
+    print(f"T2 bf16 step, {arch} batch 64 (P 16 x K 4) at 256x128: median {device_ms:.3f} ms "
           f"on the card (CUDA events), {host_ms:.3f} ms on the host clock, "
-          f"{r['imgs_per_s']:.0f} img/s, peak {peak_gib:.2f} GiB; {flop / 1e12:.3f} TFLOP a step "
-          f"(3 x forward), {share:.1%} of the bf16 dense peak (bound {r['bound_ms']:.3f} ms); "
-          f"loss {r['loss_first5']:.4f} -> {r['loss_last5']:.4f} (first and last 5 of 25)")
+          f"{r['imgs_per_s']:.0f} img/s, peak {peak_gib:.2f} GiB; a traced step: {events} device "
+          f"events, {busy_ms:.3f} ms of them; "
+          f"{flop / 1e12:.3f} TFLOP a step (3 x forward), {share:.1%} of the bf16 dense peak "
+          f"(bound {r['bound_ms']:.3f} ms); loss {r['loss_first5']:.4f} -> "
+          f"{r['loss_last5']:.4f} (first and last 5 of 25)")
     check(all(np.isfinite(losses)), "T2: non-finite loss")
     check(r["loss_last5"] < r["loss_first5"], "T2: the loss did not fall on a repeated batch")
     return r
@@ -1076,8 +1123,9 @@ def ssg_cli(name: str, main_fn, argv: list[str], logs: str, launches: int) -> di
     return r
 
 
-def p5_remat(dev: torch.device, ds) -> dict:
-    """P5: the bf16 step of ResNet-50 at batch 64 (P 16 x K 4) on one batch
+def p5_remat(dev: torch.device, ds, arch: str = "resnet50") -> dict:
+    """P5: the bf16 step of ``arch`` (ResNet-50; path 6 also runs the
+    Inception) at batch 64 (P 16 x K 4) on one batch
     with fixed crops, with and without remat, from the same weights, in
     turns: 5 steps compared (loss, BN statistics, and the parameters, which
     the gradients moved), then 10 timed each (CUDA
@@ -1088,7 +1136,7 @@ def p5_remat(dev: torch.device, ds) -> dict:
     images, labels = images.to(dev), labels.to(dev)
     crops = transforms.draw_crops(torch.Generator(device=dev).manual_seed(3), 64, TRAIN_H,
                                   TRAIN_W)
-    plain = models.create("resnet50", num_features=0, num_parts=3, dtype=torch.bfloat16)
+    plain = models.create(arch, num_features=0, num_parts=3, dtype=torch.bfloat16)
     plain.reset_parameters(torch.Generator().manual_seed(0))
     remat = copy.deepcopy(plain)
     steps = {}
@@ -1131,7 +1179,7 @@ def p5_remat(dev: torch.device, ds) -> dict:
          "losses_5": {k: v[:5] for k, v in losses.items()},
          "model_gib": torch.cuda.memory_allocated() / 2**30}
     r["slowdown"] = r["median_ms"]["remat"] / r["median_ms"]["plain"]
-    print(f"P5 remat, bf16 ResNet-50 batch 64: peak {r['peak_gib']['plain']:.3f} GiB plain, "
+    print(f"P5 remat, bf16 {arch} batch 64: peak {r['peak_gib']['plain']:.3f} GiB plain, "
           f"{r['peak_gib']['remat']:.3f} GiB remat ({r['model_gib']:.3f} GiB resident after the "
           f"steps); a step's rise {r['step_rise_gib']['plain']:.3f} GiB plain, "
           f"{r['step_rise_gib']['remat']:.3f} GiB remat; median {r['median_ms']['plain']:.3f} "
@@ -1205,28 +1253,24 @@ def p6_metrics(dev: torch.device) -> dict:
     return r
 
 
-def cli_phases(dev: torch.device) -> dict:
+def cli_phases(dev: torch.device, root: str) -> dict:
     """Path 4: P1-P4 through the CLIs in this process, each in a log
-    directory of its own under a temporary one, then P5 (remat) and P6
-    (the evaluation metrics on the card)."""
-    root = tempfile.mkdtemp(prefix="ssg_cli_")
+    directory of its own under ``root`` (P1's checkpoint stays there for
+    path 6), then P5 (remat) and P6 (the evaluation metrics on the card)."""
     t0 = time.perf_counter()
-    try:
-        p1, p2, source = p1_p2_pretraining(root)
-        target = CLI_MODEL + ["--tgt_dataset", "dukemtmc", "--scale", CLI_TARGET_SCALE,
-                              "--iteration", "1", "--resume", source]
-        # 3 launches in cluster_groups, 1 in the re-ranked evaluation.
-        p3 = ssg_cli("P3 selftraining", selftraining.main,
-                     target + ["--epochs", "2", "--rho", "1.6e-3", "--rerank"],
-                     os.path.join(root, "p3"), launches=4)
-        p4 = ssg_cli("P4 semitraining", semitraining.main, target + ["--epochs", "1"],
-                     os.path.join(root, "p4"), launches=3)
-        heads = load_checkpoint(os.path.join(root, "p4", "checkpoint.pth"),
-                                device="cpu")["model"]["classifier_whole.weight"]
-        check(tuple(heads.shape) == (140, 2048),
-              f"P4: classifier {tuple(heads.shape)}, expected the 140 target identities")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    p1, p2, source = p1_p2_pretraining(root)
+    target = CLI_MODEL + ["--tgt_dataset", "dukemtmc", "--scale", CLI_TARGET_SCALE,
+                          "--iteration", "1", "--resume", source]
+    # 3 launches in cluster_groups, 1 in the re-ranked evaluation.
+    p3 = ssg_cli("P3 selftraining", selftraining.main,
+                 target + ["--epochs", "2", "--rho", "1.6e-3", "--rerank"],
+                 os.path.join(root, "p3"), launches=4)
+    p4 = ssg_cli("P4 semitraining", semitraining.main, target + ["--epochs", "1"],
+                 os.path.join(root, "p4"), launches=3)
+    heads = load_checkpoint(os.path.join(root, "p4", "checkpoint.pth"),
+                            device="cpu")["model"]["classifier_whole.weight"]
+    check(tuple(heads.shape) == (140, 2048),
+          f"P4: classifier {tuple(heads.shape)}, expected the 140 target identities")
     p5 = p5_remat(dev, datasets.create("dukemtmc", scale=0.2, seed=0))
     p6 = p6_metrics(dev)
     return {"p1": p1, "p2": p2, "p3": p3, "p4": p4, "p5": p5, "p6": p6,
@@ -1500,6 +1544,381 @@ def c1_c2_cluster(dev: torch.device) -> dict:
     return {"c1": c1, "c2": c2, "ceiling_n_extrapolated": ceiling}
 
 
+# Path 6, the on-disk workflow: a raw Market-style benchmark tree written
+# from the synthetic renderer (P3's target, DukeMTMC x0.2: 1120 train, 280
+# query and 560 gallery images of the same identities), prepared by the
+# prepare CLI, then read through DirectoryReID by the CLIs.
+D_SCALE = 0.2
+D_ODD = 5  # gallery files written at 128x64, Market-1501's own size, resized on decode
+D_JUNK = {"bounding_box_train": 1, "bounding_box_test": 2}  # pid -1 distractor files
+RAW_DIRS = (("train", "bounding_box_train"), ("query", "query"), ("gallery", "bounding_box_test"))
+D2_COSINE_MIN = 0.99999  # disk against rendered embeddings of the same bytes, per row
+D3_BATCH = 32  # the Inception's SSG batch: 8 whole-body clusters make a P x K batch
+D3_FP32_TOL = 1e-4  # fp32 unit-norm embeddings, card against CPU: sums in another order
+# KISSME: the card's and the CPU's fp32 fits are each held against the fit
+# in fp64 within the first-order perturbation estimate of fp32 inverses:
+# a covariance C formed and inverted with relative backward error u = 2^-24
+# moves C^-1 by up to u lambda_max(C) / lambda_min(C)^2 in the 2-norm, which
+# bounds every entry of M's change (the PSD projection is taken as not
+# enlarging it). At 2048-d on 1120 images both covariances are singular but
+# for eps, so the estimate is far above the 1e-4 of max|M| that the CPU
+# tests (and the card test, card against CPU) hold at 32-64 well-conditioned
+# dimensions; on clustered unit features of this shape on the CPU it sat
+# ~10x above the fp32 fit's error.
+FP32_U = 2.0**-24
+CONV_KERNEL = r"(?i)conv|fprop|xmma|implicit|cutlass|cudnn|sm90"
+
+
+def write_ppm(path: str, img: np.ndarray) -> None:
+    """Binary PPM (magic ``P6``): both decoders identify it by its bytes,
+    whatever the file's extension."""
+    with open(path, "wb") as f:
+        f.write(b"P6\n%d %d\n255\n" % (img.shape[1], img.shape[0]))
+        f.write(np.ascontiguousarray(img).tobytes())
+
+
+def write_raw_market(ds, raw_root: str, odd: int = D_ODD, junk: dict = D_JUNK,
+                     chunk: int = 256) -> dict:
+    """Write ``ds`` as a raw Market-1501 / DukeMTMC-reID distribution under
+    ``raw_root``: ``bounding_box_train``, ``query`` and ``bounding_box_test``
+    holding PPM bytes under the benchmarks' names
+    ``{pid:04d}_c{cam}s1_{frame:06d}_00.jpg`` (cameras 1-based), at the
+    renderer's 256x128 except the first ``odd`` gallery images (halved),
+    plus ``junk[dir]`` pid -1 files. Returns, per split, the rows
+    ``(raw name, pid, cam, pixels or None for a halved image)`` in the
+    order ``prepare`` lists them (sorted names)."""
+    out = {}
+    for split, sub in RAW_DIRS:
+        d = os.path.join(raw_root, sub)
+        os.makedirs(d, exist_ok=True)
+        items = getattr(ds, split)
+        rows = []
+        for s in range(0, len(items), chunk):
+            part = items[s:s + chunk]
+            for k, ((_, pid, cam), img) in enumerate(zip(part, ds.render([f for f, _, _ in part]))):
+                name = f"{pid:04d}_c{cam + 1}s1_{s + k:06d}_00.jpg"
+                small = split == "gallery" and s + k < odd
+                write_ppm(os.path.join(d, name), img[::2, ::2] if small else img)
+                rows.append((name, pid, cam, None if small else img))
+        rng = np.random.default_rng(len(items))
+        for j in range(junk.get(sub, 0)):
+            write_ppm(os.path.join(d, f"-1_c1s1_{j:06d}_00.jpg"),
+                      rng.integers(0, 256, (128, 64, 3), dtype=np.uint8))
+        out[split] = sorted(rows, key=lambda r: r[0])
+    return out
+
+
+def padded_batches(images: np.ndarray, dev, bs: int = 64) -> list:
+    """``images`` on the card in ``Preprocessor``'s batches: the tail padded
+    with its last image, masked out."""
+    out = []
+    for s in range(0, len(images), bs):
+        chunk = images[s:s + bs]
+        n = len(chunk)
+        chunk = np.concatenate([chunk, np.repeat(chunk[-1:], bs - n, 0)])
+        mask = np.arange(bs) < n
+        out.append((torch.from_numpy(chunk).to(dev), np.zeros(bs, np.int32),
+                    np.zeros(bs, np.int32), mask))
+    return out
+
+
+def d1_prepare(root: str) -> tuple[dict, str, dict, object]:
+    """D1: write the raw tree, prepare it through ``cli.prepare`` in this
+    process, and check the splits (the raw tree's less the junk), the
+    ``meta.json`` counts and the decode: every 256x128 image byte for byte
+    the rendered one, the halved ones resized to 256x128. Prints which
+    decoder ran (the native library, or PIL where it cannot be built) and
+    the host decode rates of ``native_loader.load_batch`` and of
+    ``Preprocessor``'s stream over the train split."""
+    ds = datasets.create("dukemtmc", scale=D_SCALE, seed=0)
+    raw, data_dir = os.path.join(root, "raw"), os.path.join(root, "data")
+    out = os.path.join(data_dir, "dukemtmc")
+    t0 = time.perf_counter()
+    rows = write_raw_market(ds, raw)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check(prepare_cli.main(["--dataset", "dukemtmc", "--raw_dir", raw, "--out_dir", out]) == 0,
+          "D1: prepare failed")
+    prepare_s = time.perf_counter() - t0
+    (splits,), meta = read_json(os.path.join(out, "splits.json")), read_json(
+        os.path.join(out, "meta.json"))
+    sizes = {split: len(splits[split]) for split, _ in RAW_DIRS}
+    check(sizes == {split: len(getattr(ds, split)) for split, _ in RAW_DIRS},
+          f"D1: prepared split sizes {sizes}")
+    check(meta == {"num_train_ids": ds.num_train_ids, "num_query_ids": ds.num_test_ids,
+                   "images": sum(sizes.values())}, f"D1: meta.json {meta}")
+    dir_ds = datasets.create("dukemtmc", root=out)
+    check(isinstance(dir_ds, datasets.DirectoryReID), "D1: the prepared tree is not read from disk")
+    decoder = "native" if native_loader.is_available() else "pil"
+    print(f"decoder: {decoder}")
+    if decoder == "pil":
+        print(f"native library build: {native_loader.last_build_error()}")
+    t0 = time.perf_counter()
+    exact = 0
+    for split, _ in RAW_DIRS:
+        items = getattr(dir_ds, split)
+        check([(p, c) for _, p, c in items] == [(p, c) for _, p, c, _ in rows[split]],
+              f"D1: {split} identities or cameras differ from the raw tree's")
+        images = dir_ds.render([f for f, _, _ in items])
+        check(images.shape == (len(items), RAW_H, RAW_W, 3), f"D1: {split} shape {images.shape}")
+        full = [k for k, r in enumerate(rows[split]) if r[3] is not None]
+        check(np.array_equal(images[full], np.stack([rows[split][k][3] for k in full])),
+              f"D1: {split}'s decoded 256x128 images differ from the rendered pixels")
+        exact += len(full)
+    render_s = time.perf_counter() - t0
+    n = len(dir_ds.train)
+    paths = [os.path.join(dir_ds.images_dir, f) for f, _, _ in dir_ds.train]
+    load_batch_rate = None
+    if decoder == "native":
+        t0 = time.perf_counter()
+        native_loader.load_batch(paths, RAW_H, RAW_W)
+        load_batch_rate = n / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for _ in Preprocessor(dir_ds, items=dir_ds.train, batch_size=64):
+        pass
+    stream_rate = n / (time.perf_counter() - t0)
+    r = {"decoder": decoder, "splits": sizes, "meta": meta, "byte_exact_images": exact,
+         "resized_images": D_ODD, "junk_files": sum(D_JUNK.values()), "write_seconds": write_s,
+         "prepare_seconds": prepare_s, "decode_all_seconds": render_s,
+         "load_batch_imgs_per_s": load_batch_rate, "stream_imgs_per_s": stream_rate,
+         "host_cpus": os.cpu_count()}
+    print(f"D1 prepare (DukeMTMC x{D_SCALE}, raw Market layout, PPM bytes): splits {sizes}, "
+          f"meta {meta}, {exact} images decoded byte for byte, {D_ODD} resized from 128x64, "
+          f"{r['junk_files']} junk files skipped; seconds: render + write {write_s:.2f}, "
+          f"prepare {prepare_s:.2f}, decode all {render_s:.2f}; host decode of the {n} train "
+          f"images: load_batch "
+          + (f"{load_batch_rate:.0f} img/s" if load_batch_rate else "not run (no native library)")
+          + f", Preprocessor stream {stream_rate:.0f} img/s ({decoder}, {os.cpu_count()} CPUs)")
+    return r, data_dir, rows, dir_ds
+
+
+def d2_resnet_from_disk(dev: torch.device, root: str, data_dir: str, rows: dict, dir_ds,
+                        p3: dict) -> tuple[dict, torch.nn.Module]:
+    """D2: ``cli.selftraining --data_dir --resume <P1> --rerank``, P3's flags
+    on the prepared tree (B1 launched 4 times); then its checkpoint's
+    embeddings of the train split through ``DirectoryReID`` against those
+    of the rendered pixels in the same batches."""
+    source = os.path.join(root, "p1", "source_checkpoint.pth")
+    argv = CLI_MODEL + ["--tgt_dataset", "dukemtmc", "--data_dir", data_dir, "--iteration", "1",
+                        "--resume", source, "--epochs", "2", "--rho", "1.6e-3", "--rerank"]
+    r = ssg_cli("D2 selftraining --data_dir", selftraining.main, argv, os.path.join(root, "d2"),
+                launches=4)
+    print(f"D2 against P3 (the same 1120 images rendered): extract {r['extract_seconds']:.2f} s "
+          f"from disk, {p3['extract_seconds']:.2f} s rendered; cluster {r['cluster_seconds']:.3f} "
+          f"/ {p3['cluster_seconds']:.3f}; train {r['train_seconds']:.2f} / "
+          f"{p3['train_seconds']:.2f}; eval {r['eval_seconds']:.2f} / {p3['eval_seconds']:.2f}")
+    model = models.create("resnet50", num_features=0, num_parts=3, dtype=torch.bfloat16)
+    model.load_state_dict(load_checkpoint(os.path.join(root, "d2", "checkpoint.pth"),
+                                          device="cpu")["model"])
+    model.to(dev, memory_format=torch.channels_last)
+    disk = api.extract_features(model, Preprocessor(dir_ds, items=dir_ds.train, batch_size=64))[0]
+    pixels = np.stack([img for _, _, _, img in rows["train"]])
+    mem = api.extract_features(model, padded_batches(pixels, dev))[0]
+    cos = float(torch.nn.functional.cosine_similarity(disk.flatten(0, 1).float(),
+                                                      mem.flatten(0, 1).float(), dim=1).min())
+    print(f"D2: {tuple(disk.shape)} embeddings of the train split from disk against the rendered "
+          f"pixels: min per-row cosine {cos:.7f}, bit-equal {torch.equal(disk, mem)}")
+    check(cos >= D2_COSINE_MIN, f"D2: disk and rendered embeddings differ: min cosine {cos:.7f}")
+    r.update(min_cosine_disk_vs_rendered=cos, p3_extract_seconds=p3["extract_seconds"])
+    return r, model
+
+
+def d3_inception(dev: torch.device, root: str, data_dir: str, rows: dict, t2: dict) -> dict:
+    """D3: the Inception at full width (depth 8, width 64, 256x128, bf16):
+    ``cli.pretraining --arch inception`` (1 epoch on Market-1501 x0.1), then
+    ``cli.selftraining --arch inception --data_dir --resume --rerank`` (1
+    iteration, batch 32); its bf16 train step timed as T2 is, beside
+    ResNet-50's; the extract of the 1120 train images, Inception and
+    ResNet-50 in turns; fp32 eval embeddings on the card against the CPU;
+    remat against the plain step as P5 holds it."""
+    inc = ["--arch", "inception"] + CLI_MODEL[2:]
+    pre = run_cli("D3 pretraining", pretraining.main,
+                  inc + ["--dataset", "market1501", "--scale", CLI_SOURCE_SCALE, "--epochs", "1"],
+                  os.path.join(root, "d3p"))
+    (epoch,) = of_kind(pre, "pretrain_epoch")
+    check(epoch["steps"] > 0 and np.isfinite(epoch["loss"]), f"D3: pretraining epoch {epoch}")
+    source = os.path.join(root, "d3p", "source_checkpoint.pth")
+    heads = load_checkpoint(source, device="cpu")["model"]["classifier_whole.weight"]
+    check(tuple(heads.shape) == (75, 1024), f"D3: classifier {tuple(heads.shape)}, "
+                                            "expected 75 identities x 1024")
+    print(f"D3 pretraining --arch inception (Market-1501 x{CLI_SOURCE_SCALE}, 1 epoch): loss "
+          f"{epoch['loss']:.4f}, {epoch['steps']} steps, {epoch['seconds']:.2f} s")
+    argv = inc + ["--tgt_dataset", "dukemtmc", "--data_dir", data_dir, "--iteration", "1",
+                  "--resume", source, "--epochs", "2", "--rho", "1.6e-3", "--rerank",
+                  "--batch_size", str(D3_BATCH)]
+    st = ssg_cli("D3 selftraining --arch inception --data_dir", selftraining.main, argv,
+                 os.path.join(root, "d3s"), launches=4)
+    ds = datasets.create("dukemtmc", scale=D_SCALE, seed=0)
+    step = t2_train_step(dev, ds, arch="inception")
+    print(f"D3 bf16 step at batch 64: Inception {step['train_step_ms']:.3f} ms "
+          f"({step['device_events_per_step']} device events, {step['device_busy_ms_per_step']:.3f} "
+          f"ms of them), ResNet-50 (T2) {t2['train_step_ms']:.3f} ms "
+          f"({t2['device_events_per_step']}, {t2['device_busy_ms_per_step']:.3f} ms)")
+    # The extract of the same pixels by both bf16 models, in turns.
+    batches = padded_batches(np.stack([img for _, _, _, img in rows["train"]]), dev)
+    nets = {}
+    for arch in ("resnet50", "inception"):
+        m = models.create(arch, num_features=0, num_parts=3, dtype=torch.bfloat16)
+        nets[arch] = m.reset_parameters(torch.Generator().manual_seed(0)).to(
+            dev, memory_format=torch.channels_last)
+        api.extract_features(nets[arch], batches)  # warm-up: cuDNN plans
+    secs = {a: [] for a in nets}
+    for arch in ("resnet50", "inception", "inception", "resnet50"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = api.extract_features(nets[arch], batches)[0]
+        torch.cuda.synchronize()
+        secs[arch].append(time.perf_counter() - t0)
+        check(tuple(feats.shape) == (3, 1120, 2048 if arch == "resnet50" else 1024)
+              and bool(torch.isfinite(feats).all()), f"D3: {arch} extract {tuple(feats.shape)}")
+    rates = {a: 1120 / min(v) for a, v in secs.items()}
+    print(f"D3 extract of 1120 images (bf16, batches on the card, best of 2 in turns): Inception "
+          f"{rates['inception']:.0f} img/s, ResNet-50 {rates['resnet50']:.0f} img/s")
+    # fp32 eval embeddings, the card against the CPU.
+    fp32 = models.create("inception", num_features=0, num_parts=3, dtype=torch.float32)
+    fp32.reset_parameters(torch.Generator().manual_seed(1))
+    x = torch.from_numpy(np.stack([img for _, _, _, img in rows["query"][:8]]))
+    on_cpu = copy.deepcopy(fp32).eval()
+    card = api._forward_eval(fp32.to(dev, memory_format=torch.channels_last).eval(), x.to(dev))
+    cpu = api._forward_eval(on_cpu, x)
+    err = float((card.cpu() - cpu).abs().max())
+    print(f"D3 fp32 eval embeddings {tuple(cpu.shape)}, card against CPU: max abs err {err:.3e}")
+    check(tuple(cpu.shape) == (3, 8, 1024), f"D3: fp32 embeddings {tuple(cpu.shape)}")
+    check(err <= D3_FP32_TOL, f"D3: fp32 embeddings differ from the CPU's by {err:.3e}")
+    remat = p5_remat(dev, ds, arch="inception")
+    return {"pretrain": {"loss": epoch["loss"], "steps": epoch["steps"],
+                         "seconds": pre["seconds"], "l1_launches": pre["l1_launches"]},
+            "selftraining": st, "train_step": step, "extract_imgs_per_s": rates,
+            "extract_seconds": secs, "fp32_card_vs_cpu": err, "remat": remat}
+
+
+def kissme_fp64(x: torch.Tensor, y: np.ndarray, eps: float = 1e-6, seed: int = 0,
+                max_pairs: int = 50_000) -> tuple[torch.Tensor, float]:
+    """KISSME's M (PSD-projected) in fp64 on the CPU, on the pairs the fit
+    draws (the reference both fits are held against), and the estimate of
+    an fp32 fit's largest entry error (``FP32_U`` above)."""
+    from ssg_tpu_torch.metric_learning.kissme import _pairs
+
+    x = x.double().cpu()
+    sim, dis = _pairs(np.asarray(y), np.random.default_rng(seed), max_pairs)
+    eye = torch.eye(x.shape[1], dtype=torch.float64)
+    m, bound = 0.0, 0.0
+    for pairs, sign in ((sim, 1.0), (dis, -1.0)):
+        d = x[pairs[:, 0]] - x[pairs[:, 1]]
+        c = d.T @ d / len(pairs) + eps * eye
+        lam = torch.linalg.eigvalsh(c)
+        bound += FP32_U * float(lam[-1] / lam[0] ** 2)
+        m = m + sign * torch.linalg.inv(c)
+    w, v = torch.linalg.eigh(m)
+    return (v * w.clamp_min(0.0)) @ v.T, bound
+
+
+def d4_rest(dev: torch.device, model, dir_ds, rows: dict) -> dict:
+    """D4: KISSME fitted on D2's whole-body train features on the card and on
+    the CPU, each held against the fit in fp64 (``M_`` and the transformed
+    distances of the query features); ``DistanceMetric("kissme").train``;
+    ``extract_cnn_feature`` against ``api.extract_features`` on one batch;
+    ``profiling.trace`` around an extract and a ``cluster_groups``, read
+    back by ``traceview.report_by_scope``, which must find the conv and L1
+    kernels in their scopes; ``device_memory_stats``; ``FeatureDatabase``
+    where h5py is installed."""
+    feats, pids, _, _ = api.extract_features(
+        model, Preprocessor(dir_ds, items=dir_ds.train, batch_size=64))
+    xq = api.extract_features(model, Preprocessor(dir_ds, items=dir_ds.query, batch_size=64))[0][0]
+    x = feats[0]
+    t0 = time.perf_counter()
+    card = KISSME().fit(x, pids)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = KISSME().fit(x.cpu(), pids, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    m64, bound = kissme_fp64(x, pids)
+    scale = float(m64.abs().max())
+    err = {"M_card_vs_fp64": float((card.M_.double().cpu() - m64).abs().max()) / scale,
+           "M_cpu_vs_fp64": float((cpu.M_.double() - m64).abs().max()) / scale,
+           "M_card_vs_cpu": float((card.M_.cpu() - cpu.M_).abs().max()) / scale}
+    q64 = xq.double().cpu()
+    d64 = q64 @ m64 @ q64.T  # x^T M y; the squared distance is (x-y)^T M (x-y)
+    diag = d64.diagonal()
+    d64 = (diag[:, None] + diag[None, :] - 2 * d64).clamp_min(0.0)
+    dscale = float(d64.abs().max())
+    # |dd_ij| <= |dM|_2 |x_i - x_j|^2 for the query features.
+    tol = {"M": bound / scale, "dist": bound * float(torch.cdist(q64, q64).max()) ** 2 / dscale}
+    err["dist_card_vs_fp64"] = float((card.distance(xq).double().cpu() - d64).abs().max()) / dscale
+    err["dist_cpu_vs_fp64"] = float((cpu.distance(xq.cpu()).double() - d64).abs().max()) / dscale
+    print(f"D4 KISSME on {tuple(x.shape)} whole-body features ({len(set(pids.tolist()))} "
+          f"identities): seconds card {card_s:.2f}, CPU {cpu_s:.2f}; errors of the largest "
+          f"entry: " + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+          + f"; fp32 estimates: M {tol['M']:.3e}, dist {tol['dist']:.3e}")
+    for what in ("M", "dist"):
+        for side in ("card", "cpu"):
+            e = err[f"{what}_{side}_vs_fp64"]
+            check(e <= tol[what], f"D4: KISSME {what} on the {side} is {e:.3e} of its largest "
+                                  f"entry from fp64, past the fp32 estimate {tol[what]:.3e}")
+    metric = DistanceMetric("kissme").train(
+        model, Preprocessor(dir_ds, items=dir_ds.query, batch_size=64))
+    z = metric.transform(xq)
+    check(tuple(metric.metric.M_.shape) == (2048, 2048) and bool(torch.isfinite(z).all())
+          and z.device.type == "cuda", "D4: DistanceMetric('kissme').train")
+    batch = torch.from_numpy(dir_ds.render([f for f, _, _ in dir_ds.train[:64]])).to(dev)
+    one = extract_cnn_feature(model, batch)
+    ref = api.extract_features(model, [(batch, np.zeros(64), np.zeros(64), np.ones(64, bool))])[0]
+    check(torch.equal(one, ref), "D4: extract_cnn_feature differs from api.extract_features")
+    batches = padded_batches(np.stack([img for _, _, _, img in rows["train"]]), dev)
+    with tempfile.TemporaryDirectory(prefix="ssg_trace_") as logdir:
+        with profiling.trace(logdir):
+            with torch.profiler.record_function("ssg_extract"):
+                f = api.extract_features(model, batches)[0]
+            with torch.profiler.record_function("ssg_cluster"):
+                api.cluster_groups(f, **ANALYTICS)
+        report = traceview.report_by_scope(logdir, r"ssg_\w+", top_ops=12)
+    names = {scope: [op for (s, op) in report["by_op"] if s == scope]
+             for scope in ("ssg_extract", "ssg_cluster")}
+    conv = [op for op in names["ssg_extract"] if re.search(CONV_KERNEL, op)]
+    l1_ops = [op for op in names["ssg_cluster"] if "l1_kernel" in op]
+    print(f"D4 trace: {report['device_events']} device events, {report['total_us'] / 1e3:.3f} ms; "
+          f"scopes {{{', '.join(f'{k}: {v / 1e3:.3f} ms' for k, v in report['by_scope'].items())}}}; "
+          f"conv kernels in ssg_extract {len(conv)} (e.g. {conv[:1]}), L1 kernels in ssg_cluster "
+          f"{l1_ops}")
+    check(bool(conv), "D4: the trace shows no convolution kernel in ssg_extract")
+    check(bool(l1_ops), "D4: the trace shows no L1 kernel in ssg_cluster")
+    mem = profiling.device_memory_stats()
+    print(f"D4 device_memory_stats: {mem}")
+    check(set(mem) == {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
+          and 0 < mem["bytes_in_use"] <= mem["peak_bytes_in_use"] <= mem["bytes_limit"],
+          f"D4: device_memory_stats {mem}")
+    if feature_database._HAVE_H5PY:
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "feats.h5")
+            with FeatureDatabase(path, "w") as db:
+                for (fname, _, _), row in zip(dir_ds.query, xq):
+                    db[fname] = row
+            with FeatureDatabase(path) as db:
+                back = np.stack([db[fname] for fname, _, _ in dir_ds.query])
+        check(np.array_equal(back, xq.cpu().numpy()), "D4: FeatureDatabase round trip")
+        database = "round trip equal"
+    else:
+        database = "not run: no h5py on this machine (the class is gated on it, as JAX's is)"
+    print(f"D4 FeatureDatabase: {database}")
+    return {"kissme_errors": err, "kissme_fp32_estimates": tol,
+            "kissme_seconds": {"card": card_s, "cpu": cpu_s},
+            "trace": {"device_events": report["device_events"], "ms": report["total_us"] / 1e3,
+                      "by_scope_ms": {k: v / 1e3 for k, v in report["by_scope"].items()},
+                      "conv_kernels": len(conv), "l1_kernels": l1_ops},
+            "device_memory_stats": mem, "feature_database": database}
+
+
+def data_dir_phases(dev: torch.device, root: str, cli: dict, t2: dict) -> dict:
+    """Path 6: D1-D4 under ``root`` (where path 4 left P1's checkpoint)."""
+    t0 = time.perf_counter()
+    d1, data_dir, rows, dir_ds = d1_prepare(root)
+    d2, model = d2_resnet_from_disk(dev, root, data_dir, rows, dir_ds, cli["p3"])
+    d3 = d3_inception(dev, root, data_dir, rows, t2)
+    d4 = d4_rest(dev, model, dir_ds, rows)
+    return {"d1": d1, "d2": d2, "d3": d3, "d4": d4, "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -1656,20 +2075,32 @@ def main() -> int:
     train = train_phases(dev)
     kernels[0]["launches_run_ssg"] = [it["l1_launches"] for it in train["t3"]["iterations"]]
 
-    # 10. Path 4: the CLIs (P1-P4) and remat (P5).
-    cli = cli_phases(dev)
-    kernels[0]["launches_cli"] = {p: cli[p]["l1_launches"] for p in ("p1", "p2", "p3", "p4")}
+    root = tempfile.mkdtemp(prefix="ssg_cli_")
+    try:
+        # 10. Path 4: the CLIs (P1-P4) and remat (P5).
+        cli = cli_phases(dev, root)
+        kernels[0]["launches_cli"] = {p: cli[p]["l1_launches"] for p in ("p1", "p2", "p3", "p4")}
 
-    # 11. Path 5: large N. L5 first (its launches compare the kernel with
-    # its plain version), then E1, E2, C1 and C2 with the count set to 0.
-    t0 = time.perf_counter()
-    tile = l5_streaming_tile(dev)
-    l1.launches = 0
-    large_n = {"e1": e1_e2_eval(dev), **c1_c2_cluster(dev)}
-    large_n["seconds"] = time.perf_counter() - t0
-    kernels[0]["launches_path5"] = l1.launches
-    check(l1.launches > 0, "path 5 did not launch the L1 kernel")
-    kernels[0]["streaming_tile"] = tile
+        # 11. Path 5: large N. L5 first (its launches compare the kernel with
+        # its plain version), then E1, E2, C1 and C2 with the count set to 0.
+        t0 = time.perf_counter()
+        tile = l5_streaming_tile(dev)
+        l1.launches = 0
+        large_n = {"e1": e1_e2_eval(dev), **c1_c2_cluster(dev)}
+        large_n["seconds"] = time.perf_counter() - t0
+        kernels[0]["launches_path5"] = l1.launches
+        check(l1.launches > 0, "path 5 did not launch the L1 kernel")
+        kernels[0]["streaming_tile"] = tile
+
+        # 12. Path 6: the on-disk workflow (D1-D4), the CLIs' runs counted
+        # one by one (run_cli sets the count to 0 before each).
+        data_dir = data_dir_phases(dev, root, cli, train["t2"])
+        kernels[0]["launches_data_dir"] = {
+            "d2": data_dir["d2"]["l1_launches"],
+            "d3_pretraining": data_dir["d3"]["pretrain"]["l1_launches"],
+            "d3_selftraining": data_dir["d3"]["selftraining"]["l1_launches"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     # Bottleneck and stage rows: per batch of the path (the 12 identity
     # blocks; the four stages), errors in bf16 ulps (bf16_ulp_error).
@@ -1701,6 +2132,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"large_n": large_n}))
+    print(json.dumps({"data_dir": data_dir}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

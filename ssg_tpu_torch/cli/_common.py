@@ -1,5 +1,5 @@
 """What the three entry points share: the stdout log, the flags that are
-not ported yet, the model and its weights."""
+not ported yet, the dataset, the model and its weights."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ import sys
 import torch
 
 from ssg_tpu_torch import models
+from ssg_tpu_torch.data import datasets
 from ssg_tpu_torch.models.convert import torch_state_dict
 from ssg_tpu_torch.utils.logging import Logger
 from ssg_tpu_torch.utils.serialization import load_checkpoint
@@ -39,11 +40,13 @@ def refuse_unported(args) -> None:
             for k in ("coordinator", "num_processes", "process_id")):
         raise NotImplementedError("--data_parallel, --multihost and --dist_*: multi-GPU "
                                   "training is not ported yet (ROADMAP A9)")
-    if args.data_dir:
-        raise NotImplementedError("--data_dir: on-disk datasets (DirectoryReID) are not "
-                                  "ported yet (ROADMAP A10)")
-    if args.arch == "inception":
-        raise NotImplementedError("--arch inception is not ported yet (ROADMAP A10)")
+
+
+def dataset(args, name: str):
+    """``name`` from ``args.data_dir/<name>`` when that holds a prepared
+    tree (``cli.prepare``), else its synthetic stand-in at ``args.scale``."""
+    root = os.path.join(args.data_dir, name) if args.data_dir else None
+    return datasets.create(name, root=root, scale=args.scale, seed=args.seed)
 
 
 def new_model(args, **kwargs):

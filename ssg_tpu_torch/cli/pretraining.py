@@ -20,7 +20,7 @@ import time
 
 from ssg_tpu_torch import api
 from ssg_tpu_torch._device import resolve_device
-from ssg_tpu_torch.cli._common import logged_stdout, new_model, refuse_unported
+from ssg_tpu_torch.cli._common import dataset, logged_stdout, new_model, refuse_unported
 from ssg_tpu_torch.data import datasets
 from ssg_tpu_torch.train.pretrain import PretrainConfig, run_pretrain
 
@@ -65,7 +65,7 @@ def main(argv=None) -> int:
     refuse_unported(args)
     dev = resolve_device(args.device)
     with logged_stdout(args.logs_dir, argv) as logger:
-        src = datasets.create(args.dataset, scale=args.scale, seed=args.seed)
+        src = dataset(args, args.dataset)
         num_ids = len({p for _, p, _ in src.train})
         print(f"source {args.dataset}: train={len(src.train)} ids={num_ids}")
         # OIM replaces the softmax classifier: no logits heads.

@@ -11,8 +11,9 @@ defaults plus ``--device``. Example (synthetic data):
 ``--resume`` takes a port checkpoint (``source_checkpoint.pth``,
 ``checkpoint.pth``) or a reference / torchvision ``.pth`` / ``.tar`` file;
 ``--resume_loop`` continues an interrupted run from its
-``logs_dir/checkpoint.pth``. ``--data_parallel``, ``--multihost``,
-``--dist_*`` and ``--data_dir`` raise: their paths are not ported yet.
+``logs_dir/checkpoint.pth``. ``--data_dir`` reads ``<data_dir>/<tgt_dataset>``
+as ``cli.prepare`` writes it. ``--data_parallel``, ``--multihost`` and
+``--dist_*`` raise: multi-GPU is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ import torch
 
 from ssg_tpu_torch import api
 from ssg_tpu_torch._device import resolve_device
-from ssg_tpu_torch.cli._common import checkpoint_state, logged_stdout, new_model, refuse_unported
-from ssg_tpu_torch.data import datasets
+from ssg_tpu_torch.cli._common import (checkpoint_state, dataset, logged_stdout, new_model,
+                                       refuse_unported)
 from ssg_tpu_torch.train.ssg_loop import SSGConfig
 
 
@@ -141,7 +142,7 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
     with logged_stdout(args.logs_dir, argv) as logger:
         print(f"device: {dev}")
-        tgt = datasets.create(args.tgt_dataset, scale=args.scale, seed=args.seed)
+        tgt = dataset(args, args.tgt_dataset)
         print(f"target {args.tgt_dataset}: train={len(tgt.train)} query={len(tgt.query)} "
               f"gallery={len(tgt.gallery)}")
         return run(args, load_model(args), tgt, dev, logger)

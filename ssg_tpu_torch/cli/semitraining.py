@@ -21,10 +21,10 @@ from __future__ import annotations
 import sys
 
 from ssg_tpu_torch._device import resolve_device
-from ssg_tpu_torch.cli._common import checkpoint_state, logged_stdout, new_model, refuse_unported
+from ssg_tpu_torch.cli._common import (checkpoint_state, dataset, logged_stdout, new_model,
+                                       refuse_unported)
 from ssg_tpu_torch.cli.selftraining import build_parser as selftraining_parser
 from ssg_tpu_torch.cli.selftraining import run
-from ssg_tpu_torch.data import datasets
 from ssg_tpu_torch.train.semi import one_shot_subset
 from ssg_tpu_torch.utils.serialization import copy_state_dict
 
@@ -44,7 +44,7 @@ def main(argv=None) -> int:
     refuse_unported(args)
     dev = resolve_device(args.device)
     with logged_stdout(args.logs_dir, argv) as logger:
-        tgt = datasets.create(args.tgt_dataset, scale=args.scale, seed=args.seed)
+        tgt = dataset(args, args.tgt_dataset)
         one_shot = one_shot_subset(tgt.train, seed=args.one_shot_seed)
         # CE class indices must be dense 0..K-1; benchmark pids are sparse.
         dense = {p: i for i, p in enumerate(sorted({pid for _, pid, _ in tgt.train}))}

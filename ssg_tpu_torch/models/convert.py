@@ -6,9 +6,11 @@ reader, without the conversion to Flax); ``torch_state_dict`` converts a
 file already loaded. ``from_jax_variables`` maps JAX
 variables: the port's own copy of the mapping in
 ``ssg_tpu/models/convert.py`` (``flax_to_torch``), which turns the JAX
-package's ``{'params', 'batch_stats'}`` numpy tree of an ``SSGResNet``
-into tensors that ``ssg_tpu_torch.models.resnet.SSGResNet.load_state_dict``
-takes:
+package's ``{'params', 'batch_stats'}`` numpy tree of an ``SSGResNet`` or
+an ``SSGInception`` into tensors that the port's model of the same name
+(``models.resnet.SSGResNet``, ``models.inception.SSGInception``) takes in
+``load_state_dict``; the Inception's module names are Flax's, so only the
+leaves are renamed:
 
   conv ``kernel`` (kh, kw, I, O) -> ``weight`` (O, I, kh, kw)
   dense ``kernel`` (I, O)        -> ``weight`` (O, I)
@@ -36,7 +38,8 @@ def _torch_key(prefix: str, leaf: str) -> str:
 
 
 def from_jax_variables(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """Convert Flax ``{'params': ..., 'batch_stats': ...}`` to a state_dict."""
+    """Convert Flax ``{'params': ..., 'batch_stats': ...}`` of an
+    ``SSGResNet`` or ``SSGInception`` to a state_dict."""
     out: dict[str, torch.Tensor] = {}
 
     def emit(prefix: str, leaf: str, arr: np.ndarray):

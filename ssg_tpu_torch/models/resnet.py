@@ -275,42 +275,40 @@ class ResNetBackbone(nn.Module):
         return x  # (B, C, h, w) conv5 feature map
 
 
-class SSGResNet(nn.Module):
-    """ResNet backbone + SSG multi-part pooling heads.
+class SSGHeads(nn.Module):
+    """The SSG multi-part heads that every backbone ends in (``SSGResNet``,
+    ``models.inception.SSGInception``), and their random initialisation.
 
-    ``forward(x)`` takes NHWC float images and returns a dict:
-    ``"embeddings"`` (num_parts, B, F), raw in train mode (the triplet
-    loss's input) and L2-normalised in eval mode when ``norm`` is set; and
-    ``"logits"`` (num_parts, B, num_classes) when ``num_classes > 0``.
-    ``F`` is ``num_features`` or, when that is 0, the backbone's channel
-    count. Dropout (``dropout > 0``, train mode) applies after each part's
-    BatchNorm and feeds only the classifier; the embedding is taken before
-    it.
+    ``_heads(fmap)`` pools the (B, C, h, w) feature map three ways (whole
+    map, upper half, lower half) and returns a dict: ``"embeddings"``
+    (num_parts, B, F), raw in train mode (the triplet loss's input) and
+    L2-normalised in eval mode when ``norm`` is set; and ``"logits"``
+    (num_parts, B, num_classes) when ``num_classes > 0``. ``F``
+    (``embedding_dim``) is ``num_features`` or, when that is 0, the
+    backbone's channel count. Dropout (``dropout > 0``, train mode) applies
+    after each part's BatchNorm and feeds only the classifier; the
+    embedding is taken before it. The heads run in fp32 (in fp64 for an
+    fp64 model, which serves as an exact reference).
     """
 
-    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), num_features: int = 0,
-                 dropout: float = 0.0, num_classes: int = 0, num_parts: int = 3,
-                 norm: bool = True, last_stride: int = 2, dtype: torch.dtype = torch.float32,
-                 fused_eval: bool = False, block: type = Bottleneck):
-        super().__init__()
-        self.backbone = ResNetBackbone(stage_sizes, last_stride, fused_eval, block)
+    def _add_heads(self, width: int, num_features: int, dropout: float, num_classes: int,
+                   num_parts: int, norm: bool, dtype: torch.dtype) -> None:
         self.num_parts = num_parts
         self.norm = norm
         self.dtype = dtype
         self.num_features = num_features
         self.num_classes = num_classes
+        self.embedding_dim = num_features or width
         self.drop = nn.Dropout(dropout) if dropout > 0 else nn.Identity()
-        width = self.backbone.out_channels
         for part in PART_NAMES[:num_parts]:
             if num_features > 0:
                 self.add_module(f"feat_{part}", nn.Linear(width, num_features))
-            self.add_module(f"feat_bn_{part}", BatchNorm1d(num_features or width, eps=1e-5))
+            self.add_module(f"feat_bn_{part}", BatchNorm1d(self.embedding_dim, eps=1e-5))
             if num_classes > 0:
-                self.add_module(f"classifier_{part}",
-                                nn.Linear(num_features or width, num_classes))
+                self.add_module(f"classifier_{part}", nn.Linear(self.embedding_dim, num_classes))
 
     @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> "SSGResNet":
+    def reset_parameters(self, generator: torch.Generator):
         """Random weights from ``generator``: convs and linears normal with
         variance 1/fan_in (LeCun, as Flax's default), biases 0, BN identity."""
         for m in self.modules():
@@ -324,9 +322,7 @@ class SSGResNet(nn.Module):
                 m.reset_parameters()
         return self
 
-    def forward(self, x, remat: bool = False) -> dict[str, torch.Tensor]:
-        x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC -> NCHW view
-        fmap = self.backbone(x, remat)
+    def _heads(self, fmap: torch.Tensor) -> dict[str, torch.Tensor]:
         h = fmap.shape[2]
         # max(h // 2, 1): a height-1 map would leave the upper slice empty.
         pools = [
@@ -351,6 +347,27 @@ class SSGResNet(nn.Module):
         if logits:
             out["logits"] = torch.stack(logits)
         return out
+
+
+class SSGResNet(SSGHeads):
+    """ResNet backbone + SSG multi-part pooling heads (``SSGHeads``).
+
+    ``forward(x, remat=False)`` takes NHWC float images and returns the
+    heads' dict.
+    """
+
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), num_features: int = 0,
+                 dropout: float = 0.0, num_classes: int = 0, num_parts: int = 3,
+                 norm: bool = True, last_stride: int = 2, dtype: torch.dtype = torch.float32,
+                 fused_eval: bool = False, block: type = Bottleneck):
+        super().__init__()
+        self.backbone = ResNetBackbone(stage_sizes, last_stride, fused_eval, block)
+        self._add_heads(self.backbone.out_channels, num_features, dropout, num_classes,
+                        num_parts, norm, dtype)
+
+    def forward(self, x, remat: bool = False) -> dict[str, torch.Tensor]:
+        x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC -> NCHW view
+        return self._heads(self.backbone(x, remat))
 
 
 def _make(stage_sizes, block):

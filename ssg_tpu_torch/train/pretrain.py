@@ -105,8 +105,7 @@ def run_pretrain(model, src, config: PretrainConfig | None = None, logger=None, 
     oim = cfg.loss == "oim"
     lut = None
     if oim:
-        width = model.num_features or model.backbone.out_channels
-        lut = torch.zeros((len(pids), width), dtype=torch.float32, device=dev)
+        lut = torch.zeros((len(pids), model.embedding_dim), dtype=torch.float32, device=dev)
     train_step = make_train_step(
         model, optimizer, margin=cfg.margin, num_parts=cfg.num_parts,
         ce_weight=0.0 if oim else cfg.ce_weight, height=cfg.height, width=cfg.width,

@@ -4,7 +4,8 @@ Counterpart of ``ssg_tpu/utils/serialization.py``, mirroring the
 reference's [reid/utils/serialization.py] surface (SURVEY.md §2 #13, §5
 checkpoint row): ``save_checkpoint(state, is_best, fpath)`` writes one
 checkpoint file plus a ``model_best.pth`` copy beside it, and
-``load_checkpoint`` reads it back. Where the JAX package stores Orbax
+``load_checkpoint`` reads it back; ``read_json`` / ``write_json`` keep
+the prepared datasets' ``splits.json`` and ``meta.json``. Where the JAX package stores Orbax
 directories, the port stores ``torch.save`` files of plain state: the
 loop's checkpoint is ``{"model": state_dict, "optimizer": state_dict,
 "iteration": int}``. ``load_checkpoint`` unpickles only tensors and plain
@@ -13,6 +14,7 @@ containers (``weights_only``).
 
 from __future__ import annotations
 
+import json
 import os
 import shutil
 
@@ -21,6 +23,17 @@ import torch
 
 def mkdir_if_missing(path: str):
     os.makedirs(path, exist_ok=True)
+
+
+def read_json(fpath: str):
+    with open(fpath) as f:
+        return json.load(f)
+
+
+def write_json(obj, fpath: str):
+    mkdir_if_missing(os.path.dirname(fpath) or ".")
+    with open(fpath, "w") as f:
+        json.dump(obj, f, indent=2)
 
 
 def save_checkpoint(state: dict, is_best: bool, fpath: str = "checkpoint.pth"):

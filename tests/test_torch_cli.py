@@ -153,9 +153,6 @@ def test_semitraining_cli_resume_mismatched_heads(pretrained, tmp_path):
     (selftraining, ["--data_parallel"], "A9"),
     (selftraining, ["--multihost"], "A9"),
     (semitraining, ["--dist_coordinator", "localhost:1234"], "A9"),
-    (selftraining, ["--data_dir", "/data"], "A10"),
-    (pretraining, ["--data_dir", "/data"], "A10"),
-    (pretraining, ["--arch", "inception"], "A10"),
 ])
 def test_unported_flags_raise(tmp_path, cli, flags, match):
     with pytest.raises(NotImplementedError, match=match):

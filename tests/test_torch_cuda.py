@@ -522,3 +522,56 @@ def test_bound_product_is_sound_on_card(gen, cuda):
     ms = torch.stack([torch.minimum(vd[i], vd).sum(1) for i in range(n)]).numpy()
     fd = np.maximum((1.0 - ms / (2.0 - ms)) * 0.9 + orig.double().cpu().numpy() * 0.1, 0.0)
     assert (fd_lb <= fd + 1e-6).all(), (fd_lb - fd).max()
+
+
+def test_disk_decode_feeds_the_card_extract(gen, cuda, tmp_path):
+    # A prepared tree of PPM files decoded by whichever decoder this machine
+    # has (the native library, or PIL where it cannot be built), its
+    # Preprocessor stream extracted on the card: equal to the extract of
+    # the same pixels handed over in memory, in the same batches.
+    from ssg_tpu_torch.data import Preprocessor, datasets
+
+    images = tmp_path / "images"
+    images.mkdir()
+    pixels = gen.integers(0, 256, size=(20, 256, 128, 3), dtype=np.uint8)
+    items = []
+    for i, img in enumerate(pixels):
+        name = f"{i // 4:08d}_{i % 2:02d}_{i:04d}.jpg"
+        with open(images / name, "wb") as f:
+            f.write(b"P6\n128 256\n255\n" + img.tobytes())
+        items.append([name, i // 4, i % 2])
+    (tmp_path / "splits.json").write_text(
+        '[{"train": %s, "query": [], "gallery": []}]' % str(items).replace("'", '"'))
+    ds = datasets.create("x", root=str(tmp_path))
+    model = models.create("resnet50", stage_sizes=(1, 1), num_features=0, dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(0)).to(cuda,
+                                                                memory_format=torch.channels_last)
+    disk = api.extract_features(model, Preprocessor(ds, batch_size=8))[0]
+    batches = []
+    for s in range(0, 20, 8):
+        chunk = np.concatenate([pixels[s:s + 8], np.repeat(pixels[min(s + 8, 20) - 1:][:1],
+                                                           max(s + 8 - 20, 0), 0)])
+        batches.append((torch.from_numpy(chunk).to(cuda), np.zeros(8), np.zeros(8),
+                        np.arange(8) < 20 - s))
+    mem = api.extract_features(model, batches)[0]
+    assert disk.device.type == "cuda" and disk.shape == (3, 20, 512)
+    assert torch.equal(disk, mem)
+
+
+def test_kissme_card_matches_cpu(gen, cuda):
+    # fp32 covariances, inverses and eigendecomposition on the card (TF32
+    # off) against the same fit on the CPU: M, L L^T and the distances
+    # within 1e-4 of their largest entry, as the CPU tests hold the port
+    # to JAX on well-conditioned 64-d covariances.
+    from ssg_tpu_torch.metric_learning import KISSME
+
+    y = gen.integers(0, 30, 800)
+    x = (gen.normal(size=(800, 64)) + gen.normal(size=(30, 64))[y]).astype(np.float32)
+    card = KISSME().fit(torch.from_numpy(x).to(cuda), y)
+    cpu = KISSME().fit(x, y, device="cpu")
+    assert card.M_.device.type == "cuda"
+    scale = float(cpu.M_.abs().max())
+    assert float((card.M_.cpu() - cpu.M_).abs().max()) <= 1e-4 * scale
+    assert float(((card.L_ @ card.L_.T).cpu() - cpu.M_).abs().max()) <= 1e-4 * scale
+    d_card, d_cpu = card.distance(x[:100]).cpu(), cpu.distance(x[:100])
+    assert float((d_card - d_cpu).abs().max()) <= 1e-4 * float(d_cpu.abs().max())

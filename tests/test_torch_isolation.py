@@ -36,7 +36,11 @@ def test_import_loads_no_jax():
             "ssg_tpu_torch.train.pretrain, ssg_tpu_torch.cli.pretraining, "
             "ssg_tpu_torch.cli.selftraining, ssg_tpu_torch.cli.semitraining, "
             "ssg_tpu_torch.parallel, ssg_tpu_torch.parallel.streaming, "
-            "ssg_tpu_torch.ops.bits, ssg_tpu_torch.ops.minsum; "
+            "ssg_tpu_torch.ops.bits, ssg_tpu_torch.ops.minsum, ssg_tpu_torch.cli.prepare, "
+            "ssg_tpu_torch.data.prepare, ssg_tpu_torch.data.native_loader, "
+            "ssg_tpu_torch.models.inception, ssg_tpu_torch.metric_learning, "
+            "ssg_tpu_torch.dist_metric, ssg_tpu_torch.feature_extraction, "
+            "ssg_tpu_torch.utils.profiling, ssg_tpu_torch.utils.traceview; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ssg_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

@@ -168,14 +168,16 @@ def test_oim_train_step_matches_jax(rng):
 
 # ---- remat ------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["resnet50", "resnet18"])
+@pytest.mark.parametrize("arch", ["resnet50", "resnet18", "inception"])
 def test_remat_step_equals_plain_step(rng, arch):
     """The same step with and without remat, from the same weights, crops
     and dropout draws: the loss within 1e-6, each gradient within 1e-5 of
     its tensor's largest, the BatchNorm running statistics and counters
     equal. A recomputation that updated the statistics again would move
-    them by the momentum."""
-    kw = dict(stage_sizes=(1, 1), num_features=16, num_classes=4, dropout=0.3)
+    them by the momentum. (The Inception checkpoints each inception block,
+    the ResNets each residual block.)"""
+    kw = dict(num_features=16, num_classes=4, dropout=0.3,
+              **({"depth": 3, "width": 16} if arch == "inception" else {"stage_sizes": (1, 1)}))
     plain = models.create(arch, **kw).reset_parameters(torch.Generator().manual_seed(0))
     remat = models.create(arch, **kw)
     remat.load_state_dict(plain.state_dict())
