@@ -5,7 +5,7 @@ Run from the repository root on a machine with a card and ``nvcc``:
 
     python3 chip_smoke.py
 
-It drives six paths through the port's entry points at full width, the
+It drives seven paths through the port's entry points at full width, the
 first two on bench config-1's workload (``bench.py``): SSG ResNet-50 (bf16,
 random weights from seed 0) extracting 3 part groups from N = 3368 synthetic
 Market-1501 images in batches of 128, then per group k-reciprocal
@@ -61,7 +61,19 @@ DBSCAN (min_samples=4):
   and the CPU, ``DistanceMetric("kissme").train``, ``extract_cnn_feature``,
   ``profiling.trace`` read back by ``traceview.report_by_scope``,
   ``device_memory_stats`` and, where h5py is installed,
-  ``FeatureDatabase``.
+  ``FeatureDatabase``;
+* path 7, multi-GPU (``path7_multi_gpu``): M0, P3's ``cli.selftraining
+  --rerank`` with ``--data_parallel`` under an NCCL process group of one on
+  cuda:0; two NCCL ranks on cuda:0, which ``make_mesh`` must refuse; then
+  4 gloo ranks sharing cuda:0 (NCCL takes one rank a card, and this card
+  is the machine's one): M1, ``sharded_re_ranking`` ->
+  ``sharded_select_eps`` -> ``sharded_dbscan`` on path 1's 3 x 3368 x 2048
+  features; M2, ``streaming_cluster_groups`` on path 5's C1 features and
+  ``streaming_rerank_eval`` on E1's; M3, T1's fp32 step (ResNet-50, batch
+  8) over 2 and 4 ranks and T2's bf16 step (batch 64) over 4, timed; M4,
+  M1 and M3 over NCCL at P = min(4, cards), only where the machine has 2+
+  cards. The kernels are built before the ranks spawn; each rank group
+  joins within a timeout and every rank must exit 0 within P7_JOIN_S.
 
 It checks them:
 
@@ -114,12 +126,30 @@ It checks them:
    KISSME fits each within the fp32 perturbation estimate of the fp64 fit,
    ``extract_cnn_feature`` equal to ``api.extract_features``, and the trace
    holding convolution kernels in its extract scope and the L1 kernel in
-   its clustering scope.
+   its clustering scope;
+10. runs path 7 and checks it: M0 exits 0, trains, evaluates and launches
+   the L1 kernel, its labels equal one-process streaming's on the same
+   features and share clusters with the dense chain's for >= 99 % of points
+   (M0_DENSE_SAME_MIN: their distance products round apart and swap
+   near-tied neighbours; it prints by how much the re-ranked matrices
+   differ and the dense labels at streaming's eps); the two NCCL ranks on
+   one card raise, naming the device; M1's ranks agree, and their labels
+   and counts are the same chain's in one process on the distance stripes
+   the ranks computed (>= 99.9 %, equal counts; the shares against path 1
+   are printed), with 3 P L1 launches a rank; M2's C1 labels share
+   clusters with path 5's one-process run for >= 99.9 % of points with
+   equal counts, E1's mAP is within 1e-4 of path 5's and its CMC and valid
+   count equal, each rank launching the L1 kernel; M3's loss within 1e-4
+   of T1's and its summed gradients within T1's rule (twice the CPU's error
+   against fp64, plus 1e-3), the bf16 losses finite; M4 as M1 and M3, or
+   the line ``multi_gpu: nccl P>1 not run (1 card)``. Its seconds are
+   gloo's through host memory on one card, not NCCL's.
 
-Any failed check ends the run with a nonzero exit. The last seven lines
+Any failed check ends the run with a nonzero exit. The last eight lines
 are path 3's ``train`` JSON, path 4's ``cli`` JSON, path 5's ``large_n``
-JSON, path 6's ``data_dir`` JSON, the kernels' JSON, the card's name and
-power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
+JSON, path 6's ``data_dir`` JSON, path 7's ``multi_gpu`` JSON, the
+kernels' JSON, the card's name and power limit from ``nvidia-smi``, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -158,8 +188,10 @@ from ssg_tpu_torch.ops.bottleneck import bf16_ulp_error, bottleneck_ref, fused_b
 from ssg_tpu_torch.ops.bottleneck_stage import fused_bottleneck_stage, stage_ref
 from ssg_tpu_torch.ops.distance import pairwise_distance, pairwise_distance_ref
 from ssg_tpu_torch.ops.rerank import _encode, _re_ranking_impl
-from ssg_tpu_torch.parallel import (streaming_cluster, streaming_cluster_groups,
+from ssg_tpu_torch.parallel import (make_mesh, sharded_dbscan, sharded_select_eps,
+                                    streaming_cluster, streaming_cluster_groups,
                                     streaming_rerank_eval)
+from ssg_tpu_torch.parallel.rerank import rerank_stripe
 from ssg_tpu_torch.train.schedule import make_optimizer
 from ssg_tpu_torch.train.ssg_loop import SSGConfig
 from ssg_tpu_torch.train.trainer import make_train_step
@@ -777,6 +809,8 @@ def check_operand_conversion(dev: torch.device) -> None:
 TRAIN_H, TRAIN_W = 256, 128
 T1_LOSS_REL = 1e-4  # fp32 card step against the CPU: sums in another order
 T1_GRAD_REL = 1e-3  # of a tensor's largest |g|, beside twice the CPU's own error
+# T1's inputs and fp64 gradients, for path 7's data-parallel step (M3).
+T1_REF: dict = {}
 # T3: the random-weight features form a few dozen whole-body clusters of the
 # 1120 images whatever rho, 1-2 P x K batches of 64 an epoch, so rho cannot
 # buy 10 steps in one epoch. SSG's own rho keeps both iterations above the
@@ -863,6 +897,8 @@ def t1_step_parity(dev: torch.device, ds) -> dict:
         return {k: float((g[k] - ref).abs().max()) / max(float(ref.abs().max()), floor)
                 for k, ref in g_64.items()}
 
+    T1_REF.update(g_64=g_64, worst_cpu=None, loss_card=loss_card, images=images, labels=labels,
+                  boxes=boxes.cpu(), flips=flips.cpu())
     err_card, err_cpu, card_cpu = errors(g_card), errors(g_cpu), {
         k: float((g_card[k] - g).abs().max()) / max(float(g.abs().max()), floor)
         for k, g in g_cpu.items()}
@@ -874,6 +910,7 @@ def t1_step_parity(dev: torch.device, ds) -> dict:
           f"({worst['card'][0]}), CPU against fp64 {worst['cpu'][1]:.3e} ({worst['cpu'][0]}), "
           f"card against CPU {worst['card_vs_cpu'][1]:.3e} ({worst['card_vs_cpu'][0]}); step "
           f"{s_card:.2f} s card (first, cold), {s_cpu:.2f} s CPU")
+    T1_REF["worst_cpu"] = worst["cpu"][1]
     check(np.isfinite(loss_card) and loss_rel <= T1_LOSS_REL,
           f"T1: the card's loss {loss_card} is not the CPU's {loss_cpu}")
     # Over all tensors: which tensor is worst, and by how much, varies from
@@ -1306,6 +1343,8 @@ E1_MAP_TOL = 1e-4  # streaming against dense re-ranked evaluation: summation ord
 E1_ROWS_TOL = 1e-5  # the re-ranked rows E1 ranks against the dense matrix's
 SAME_CLUSTER_MIN = 0.999  # as path 1's gate
 EPS_REL = 1e-5
+# Path 5's single-process streaming results, for path 7's ranks (M2).
+PATH5_REF: dict = {}
 
 
 def identities(gen: torch.Generator, n: int, ids: int, skew: float, dev) -> torch.Tensor:
@@ -1433,6 +1472,7 @@ def e1_e2_eval(dev: torch.device) -> dict:
           f"features: streaming {s_peak:.3f} GiB, dense {d_peak:.3f} GiB")
     check(rows_err <= E1_ROWS_TOL, f"E1: re-ranked rows differ from dense by {rows_err:.3e}")
     check(gaps["mAP"] <= E1_MAP_TOL, f"E1: mAP gap {gaps['mAP']:.2e}")
+    PATH5_REF["e1"] = (s_map, np.asarray(s_cmc), nv)
     check(all(gaps[f"rank{k}"] <= 2.0 / E1_Q for k in (1, 5, 10)), f"E1: CMC gaps {gaps}")
 
     class FeatureStub(api.Evaluator):
@@ -1492,6 +1532,7 @@ def c1_c2_cluster(dev: torch.device) -> dict:
               f"{int(dv[6])} group max {int(dv[7])} dbscan rounds {int(dv[8])}; phase seconds "
               f"{ {k: round(v, 4) for k, v in diag['seconds'][g].items()} }")
     shares = cluster_gates("C1", *s, *d)
+    PATH5_REF["c1"] = (s[0], s[1], s[2], codes)
     check(any(c & (1 | 2 | 4 | 8) == 0 for c in codes),
           f"C1: the fast path engaged on no group (fallback codes {codes})")
     fdiag = {}
@@ -1919,6 +1960,515 @@ def data_dir_phases(dev: torch.device, root: str, cli: dict, t2: dict) -> dict:
     return {"d1": d1, "d2": d2, "d3": d3, "d4": d4, "seconds": time.perf_counter() - t0}
 
 
+# Path 7, multi-GPU: the ranks of a torch.distributed group. The card
+# machine holds one GPU and NCCL takes one rank a device, so the multi-rank
+# logic runs as P gloo processes sharing cuda:0 (their collectives go
+# through host memory: the seconds below are gloo's on one card, not
+# NCCL's); NCCL runs at world size 1 (M0), and at P > 1 only where the
+# machine has the cards (M4).
+P7_RANKS = 4
+# M0's streaming labels against the dense chain's on trained bf16
+# embeddings: their chunked and whole distance products round apart, which
+# swaps near-tied neighbours in the rank lists (the re-ranked matrices then
+# differ by up to ~0.14 of a few rows); gated as path 2's analytics are
+# against exact distances. Against one-process streaming the gate is equality.
+M0_DENSE_SAME_MIN = 0.99
+P7_INIT_S = 300  # a collective's timeout in every rank group
+P7_JOIN_S = 900  # a rank group's bound
+M3_STEPS = 10  # timed bf16 data-parallel steps (after 3 warm-up)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _p7_rank(rank, nprocs, port, backend, target, payload, out_dir):
+    """One rank of a path-7 group: join, run ``target(mesh, payload)``,
+    save its result. An exception fails the rank, and the group."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from ssg_tpu_torch.parallel import make_mesh
+
+    import traceback
+
+    dev = f"cuda:{rank % torch.cuda.device_count()}" if backend == "nccl" else "cuda:0"
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=nprocs, timeout=datetime.timedelta(seconds=P7_INIT_S))
+    try:
+        result = target(make_mesh(device=dev, backend=backend), payload)
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    except BaseException:
+        # Every rank's traceback, not only the first one the join reports.
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def p7_spawn(target, nprocs: int, backend: str, payload: dict) -> list:
+    """``target(mesh, payload)`` on ``nprocs`` spawned ranks; every rank must
+    exit 0 within P7_JOIN_S seconds, or the run fails (the ranks left are
+    killed)."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="ssg_p7_") as out_dir:
+        ctx = mp.start_processes(_p7_rank, args=(nprocs, _free_port(), backend, target, payload,
+                                                 out_dir),
+                                 nprocs=nprocs, join=False, start_method="spawn")
+        deadline = time.monotonic() + P7_JOIN_S
+        try:
+            while not ctx.join(timeout=1.0):
+                check(time.monotonic() < deadline,
+                      f"path 7: {nprocs} {backend} ranks of {target.__name__} outlived "
+                      f"{P7_JOIN_S} s")
+        except BaseException:
+            for r in range(nprocs):
+                err = os.path.join(out_dir, f"rank{r}.err")
+                if os.path.exists(err):
+                    print(f"path 7 rank {r} of {nprocs} failed:\n{open(err).read()}", flush=True)
+            raise
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                for r in range(nprocs)]
+
+
+def _synced(mesh, fn):
+    """(result, seconds) of ``fn``, the device synchronised and the ranks
+    met before and after."""
+    import torch.distributed as dist
+
+    torch.cuda.synchronize(mesh.device)
+    dist.barrier()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(mesh.device)
+    dist.barrier()
+    return out, time.perf_counter() - t0
+
+
+def _m1_chain(mesh, pl) -> dict:
+    """M1 on one rank: sharded_re_ranking -> sharded_select_eps ->
+    sharded_dbscan per group of path 1's features."""
+    from ssg_tpu_torch.parallel import (sharded_dbscan, sharded_pairwise_distance,
+                                        sharded_re_ranking, sharded_select_eps)
+
+    feats = torch.load(pl["m1_feats"]).to(mesh.device)
+    out = {"labels": [], "counts": [], "eps": [], "seconds": [], "dist": []}
+    l1.launches = 0
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    for g in range(feats.shape[0]):
+        def chain():
+            rr = sharded_re_ranking(feats[g], mesh, k1=K1, k2=K2, lambda_value=LAMBDA)
+            eps = sharded_select_eps(rr, mesh, rho=RHO)
+            return sharded_dbscan(rr, eps, mesh, min_samples=MIN_SAMPLES), eps
+
+        ((labels, n), eps), sec = _synced(mesh, chain)
+        out["labels"].append(labels.cpu().numpy())
+        out["counts"].append(int(n))
+        out["eps"].append(float(eps))
+        out["seconds"].append(sec)
+    out["l1_launches"] = l1.launches
+    # The rank's distance stripes, as the chain computed them (the same
+    # product shapes), for the one-process reference.
+    out["dist"] = [sharded_pairwise_distance(feats[g], mesh).cpu() for g in range(feats.shape[0])]
+    out["peak_gib"] = torch.cuda.max_memory_allocated(mesh.device) / 2**30
+    return out
+
+
+def _m2_streaming(mesh, pl) -> dict:
+    """M2 on one rank: C1's streaming_cluster_groups and E1's
+    streaming_rerank_eval over the mesh, on path 5's seeded features."""
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(12)
+    assign = identities(gen, C1_N, C1_IDS, TRAIN_SKEW, dev)
+    feats = torch.stack([clustered_features(gen, assign, C1_IDS, 2048, CLUSTER_LATENT)
+                         for _ in range(C1_GROUPS)])
+    l1.launches = 0
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    diag = {}
+    (labels, counts, epss), sec = _synced(mesh, lambda: streaming_cluster_groups(
+        feats, **ANALYTICS, diag=diag, mesh=mesh))
+    c1 = {"labels": labels, "counts": counts, "eps": epss, "codes": diag["fallback_code"],
+          "phase_seconds": diag["seconds"], "seconds": sec, "l1_launches": l1.launches,
+          "peak_gib": (torch.cuda.max_memory_allocated(dev) - base) / 2**30}
+    del feats
+    qf, gf, q_ids, g_ids, q_cams, g_cams = eval_protocol(dev)
+    l1.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    (mAP, cmc_curve, nv), sec = _synced(mesh, lambda: streaming_rerank_eval(
+        qf, gf, q_ids, g_ids, q_cams, g_cams, mesh=mesh))
+    e1 = {"mAP": mAP, "cmc": cmc_curve, "n_valid": nv, "seconds": sec,
+          "l1_launches": l1.launches,
+          "peak_gib": (torch.cuda.max_memory_allocated(dev) - base) / 2**30}
+    return {"c1": c1, "e1": e1}
+
+
+def _m3_steps(mesh, pl) -> dict:
+    """M3 on one rank: T1's fp32 step (ResNet-50, batch 8, T1's inputs and
+    weights) over the mesh, its summed gradients against T1's fp64 ones;
+    with ``bf16``, the bf16 step at batch 64 timed."""
+    from ssg_tpu_torch.parallel.dp import shard_batch
+
+    dev = mesh.device
+    t1 = torch.load(pl["t1_ref"], weights_only=False)
+    model = models.create("resnet50", num_features=0, num_parts=3, dtype=torch.float32)
+    model.reset_parameters(torch.Generator().manual_seed(1))
+    model.to(dev, memory_format=torch.channels_last)
+    step = make_train_step(model, make_optimizer(model.parameters(), 6e-5), num_parts=3,
+                           height=TRAIN_H, width=TRAIN_W, mesh=mesh)
+    metrics, sec = _synced(mesh, lambda: step(
+        shard_batch(mesh, t1["images"]).to(dev), t1["labels"].to(dev),
+        crops=(t1["boxes"].to(dev), t1["flips"].to(dev))))
+    out = {"loss": float(metrics["loss"]), "seconds_first": sec}
+    if mesh.rank == 0:
+        g_64 = t1["g_64"]
+        floor = 1e-3 * max(float(g.abs().max()) for g in g_64.values())
+        errs = {k: float((p.grad.double().cpu() - g_64[k]).abs().max())
+                / max(float(g_64[k].abs().max()), floor) for k, p in model.named_parameters()}
+        out["worst_grad_err"] = max(errs.items(), key=lambda kv: kv[1])
+    del model, step
+    if not pl.get("bf16"):
+        return out
+    model = models.create("resnet50", num_features=0, num_parts=3, dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to(dev, memory_format=torch.channels_last)
+    images = shard_batch(mesh, pl["bf16_images"]).to(dev)
+    labels = pl["bf16_labels"].to(dev)
+    step = make_train_step(model, make_optimizer(model.parameters(), 1e-3), num_parts=3,
+                           height=TRAIN_H, width=TRAIN_W, mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    losses = [step(images, labels, gen)["loss"] for _ in range(3)]
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(M3_STEPS)]
+    _, host_s = _synced(mesh, lambda: [
+        (start.record(), losses.append(step(images, labels, gen)["loss"]), end.record())
+        for start, end in events])
+    out["bf16"] = {"device_ms": statistics.median(a.elapsed_time(b) for a, b in events),
+                   "host_ms": host_s * 1e3 / M3_STEPS,
+                   "losses": [float(x) for x in losses]}
+    return out
+
+
+def _p7_gloo_ranks(mesh, pl) -> dict:
+    """The gloo group's phases on one rank, in order."""
+    out = {}
+    for name, fn in (("m1", _m1_chain), ("m2", _m2_streaming), ("m3", _m3_steps)):
+        if name in pl["phases"]:
+            t0 = time.perf_counter()
+            out[name] = fn(mesh, pl)
+            if mesh.rank == 0:
+                print(f"path 7 {mesh.backend} x{mesh.size}: {name} done in "
+                      f"{time.perf_counter() - t0:.1f} s, peak "
+                      f"{torch.cuda.max_memory_allocated(mesh.device) / 2**30:.2f} GiB a rank",
+                      flush=True)
+    return out
+
+
+def _p7_nccl_dup_rank(rank, port, out_dir):
+    """Two nccl ranks on cuda:0: make_mesh must raise, naming the device."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from ssg_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=60))
+    try:
+        make_mesh(device="cuda:0", backend="nccl")
+        msg = None
+    except RuntimeError as e:
+        msg = str(e)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.txt"), "w") as f:
+        f.write(msg or "")
+
+
+def m0_nccl_one(root: str, p1_ckpt: str) -> dict:
+    """M0: ``selftraining --data_parallel --rerank`` on P3's target and flags
+    under an NCCL group of one on cuda:0 (streaming clustering on the mesh
+    of one, the mesh Evaluator); its labels against the dense chain's on the
+    same features."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from ssg_tpu_torch.train import ssg_loop
+
+    seen = []
+    inner = ssg_loop.streaming_cluster_groups
+
+    def record(feats, **kw):
+        res = inner(feats, **kw)
+        seen.append((feats.clone(), res))
+        return res
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=P7_INIT_S))
+    ssg_loop.streaming_cluster_groups = record
+    try:
+        argv = CLI_MODEL + ["--tgt_dataset", "dukemtmc", "--scale", CLI_TARGET_SCALE,
+                            "--iteration", "1", "--resume", p1_ckpt, "--epochs", "2",
+                            "--rho", "1.6e-3", "--rerank", "--data_parallel"]
+        run = run_cli("M0", selftraining.main, argv, os.path.join(root, "m0"))
+    finally:
+        ssg_loop.streaming_cluster_groups = inner
+        dist.destroy_process_group()
+    (it,) = of_kind(run, "iteration")
+    (feats, (labels, counts, epss)), = seen
+    single = streaming_cluster_groups(feats, **ANALYTICS)
+    d_labels, d_counts, d_epss = api.cluster_groups(feats, **ANALYTICS)
+    shares = [same_cluster_share(labels[g][None], d_labels[g][None]) for g in range(len(counts))]
+    # Where streaming and dense part, is it their matrices or their eps? The
+    # streaming matrix against the dense one, and DBSCAN of the dense matrix
+    # at streaming's eps.
+    gaps, at_stream_eps = [], []
+    for g in range(len(counts)):
+        final = streaming_cluster(feats[g], **ANALYTICS, return_final=True)[3]
+        dense = _re_ranking_impl(pairwise_distance(feats[g]), K1, K2, LAMBDA)
+        gaps.append(float((final - dense).abs().max()))
+        at_stream_eps.append(same_cluster_share(
+            dbscan(dense, epss[g], min_samples=MIN_SAMPLES)[0].cpu().numpy()[None],
+            d_labels[g][None]))
+        del final, dense
+    r = {"clusters": counts, "dense_clusters": d_counts, "eps": epss, "dense_eps": d_epss,
+         "same_cluster": shares, "max_abs_matrix_gap": gaps,
+         "dense_at_streaming_eps_same_cluster": at_stream_eps, "steps": it["steps"],
+         "mAP": it.get("mAP"), "l1_launches": run["l1_launches"], "seconds": run["seconds"]}
+    print(f"M0 selftraining --data_parallel --rerank, nccl world size 1: clusters {counts} "
+          f"(dense {d_counts}; one process streaming {single[1]}), eps {epss} (dense {d_epss}), "
+          f"same cluster as dense {[round(x, 6) for x in shares]}; the re-ranked matrices differ "
+          f"by up to {[round(x, 4) for x in gaps]} (near-tied neighbours of the trained bf16 "
+          f"embeddings), the dense matrix at streaming's eps gives the dense labels' clusters "
+          f"for {[round(x, 6) for x in at_stream_eps]}; {it['steps']} steps, mAP "
+          f"{it.get('mAP')}; L1 launches {run['l1_launches']}; {run['seconds']:.2f} s")
+    check(np.array_equal(labels, single[0]) and counts == single[1],
+          "M0: the data-parallel loop's labels are not one-process streaming's")
+    check(all(x >= M0_DENSE_SAME_MIN for x in shares), f"M0: same cluster {shares}")
+    check(run["l1_launches"] > 0, "M0: the L1 kernel was not launched")
+    check(it["steps"] > 0 and "mAP" in it, f"M0: the iteration did not train and evaluate {it}")
+    return r
+
+
+def m1_reference(ranks: list, dev: torch.device) -> dict:
+    """M1's chain in this process (a mesh of one) on the distance stripes
+    the ranks computed: labels and counts a group."""
+    one = make_mesh(device=dev)
+    ref = {"labels": [], "counts": []}
+    for g in range(len(ranks[0]["m1"]["dist"])):
+        d = torch.cat([r["m1"]["dist"][g] for r in ranks]).to(dev)
+        rr = rerank_stripe(d, d.shape[1], one, K1, K2, LAMBDA)
+        lab, nc = sharded_dbscan(rr, sharded_select_eps(rr, one, rho=RHO), one,
+                                 min_samples=MIN_SAMPLES)
+        ref["labels"].append(lab.cpu().numpy())
+        ref["counts"].append(int(nc))
+    return ref
+
+
+def path7_multi_gpu(dev: torch.device, root: str, p1_ckpt: str, feats, labels, counts) -> dict:
+    """Path 7 (M0-M4): see the module docstring."""
+    t_all = time.perf_counter()
+    p = P7_RANKS
+    out = {"ranks": p, "backend_on_one_card": "gloo"}
+    # The ranks share the card with this process: give back its cached blocks.
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"path 7: this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB; the card "
+          f"has {free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
+    m0 = m0_nccl_one(root, p1_ckpt)
+
+    # NCCL refuses two ranks on one device: make_mesh raises first.
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="ssg_p7_dup_") as out_dir:
+        ctx = mp.start_processes(_p7_nccl_dup_rank, args=(_free_port(), out_dir), nprocs=2,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + 120
+        try:
+            while not ctx.join(timeout=1.0):
+                check(time.monotonic() < deadline, "path 7: the nccl duplicate check hung")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        dup = [open(os.path.join(out_dir, f"rank{r}.txt")).read() for r in range(2)]
+    print(f"nccl, 2 ranks on cuda:0: make_mesh raised: {dup[0]!r}")
+    check(all("share the device" in m for m in dup), f"nccl duplicate not refused: {dup}")
+
+    scratch = tempfile.mkdtemp(prefix="ssg_p7_in_")
+    try:
+        m1_feats = os.path.join(scratch, "m1_feats.pt")
+        torch.save(feats.cpu(), m1_feats)
+        t1_ref = os.path.join(scratch, "t1_ref.pt")
+        torch.save(T1_REF, t1_ref)
+        bf16_images, bf16_labels = pk_batch(datasets.create("dukemtmc", scale=0.2, seed=0), 16, 4)
+        payload = {"phases": ("m1", "m2", "m3"), "m1_feats": m1_feats, "t1_ref": t1_ref,
+                   "bf16": True, "bf16_images": bf16_images, "bf16_labels": bf16_labels}
+        t0 = time.perf_counter()
+        ranks4 = p7_spawn(_p7_gloo_ranks, p, "gloo", payload)
+        spawn4_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks2 = p7_spawn(_p7_gloo_ranks, 2, "gloo", {"phases": ("m3",), "t1_ref": t1_ref})
+        spawn2_s = time.perf_counter() - t0
+
+        # M1: the sharded dense chain. Its reference is the same chain in this
+        # process (a mesh of one) on the distance stripes the ranks computed:
+        # path 1's one (N, N) product rounds apart from the ranks' (N/P, N)
+        # products, and on these random-weight features that alone swaps
+        # near-tied neighbours (path 1's own gate against the plain L1 holds
+        # the distances fixed). Against path 1 the shares are reported.
+        r0 = ranks4[0]["m1"]
+        ref = m1_reference(ranks4, dev)
+        m1 = {"launches_per_rank": [r["m1"]["l1_launches"] for r in ranks4],
+              "seconds": r0["seconds"], "peak_gib_per_rank": [r["m1"]["peak_gib"] for r in ranks4],
+              "clusters": r0["counts"], "eps": r0["eps"], "one_process_clusters": ref["counts"],
+              "same_cluster": [same_cluster_share(r0["labels"][g][None], ref["labels"][g][None])
+                               for g in range(len(counts))],
+              "path1_clusters": list(counts),
+              "same_cluster_vs_path1": [same_cluster_share(r0["labels"][g][None],
+                                                           labels[g][None])
+                                        for g in range(len(counts))],
+              "one_process_vs_path1": [same_cluster_share(ref["labels"][g][None],
+                                                          labels[g][None])
+                                       for g in range(len(counts))]}
+        print(f"M1 sharded_re_ranking -> select_eps -> dbscan, {p} gloo ranks on one card, "
+              f"3 x {N} x 2048: clusters {r0['counts']} (one process on the ranks' distances "
+              f"{ref['counts']}), same cluster {[round(x, 6) for x in m1['same_cluster']]}; "
+              f"against path 1 ({list(counts)}): {[round(x, 6) for x in m1['same_cluster_vs_path1']]}"
+              f", the one-process chain on the ranks' distances "
+              f"{[round(x, 6) for x in m1['one_process_vs_path1']]}; seconds a group "
+              f"{[round(x, 3) for x in m1['seconds']]}, L1 launches a rank "
+              f"{m1['launches_per_rank']}, peak GiB a rank "
+              f"{[round(x, 3) for x in m1['peak_gib_per_rank']]}")
+        for r in ranks4:
+            check(all(np.array_equal(a, b) for a, b in zip(r["m1"]["labels"], r0["labels"])),
+                  "M1: the ranks' labels differ")
+        check(all(x >= SAME_CLUSTER_MIN for x in m1["same_cluster"])
+              and r0["counts"] == ref["counts"], f"M1: against one process {m1}")
+        check(all(n == 3 * p for n in m1["launches_per_rank"]),
+              f"M1: L1 launches a rank {m1['launches_per_rank']}, expected {3 * p}")
+
+        # M2: streaming over the ranks against path 5's single-process runs.
+        c1 = ranks4[0]["m2"]["c1"]
+        s_labels, s_counts, s_eps, s_codes = PATH5_REF["c1"]
+        shares = [same_cluster_share(c1["labels"][g][None], s_labels[g][None])
+                  for g in range(C1_GROUPS)]
+        npad = -(-C1_N // (p * STREAM_CHUNK)) * p * STREAM_CHUNK
+        peaks = [r["m2"]["c1"]["peak_gib"] for r in ranks4]
+        per_n2 = [pk * 2**30 / (npad * npad / p) for pk in peaks]
+        total = torch.cuda.get_device_properties(0).total_memory
+        # A rank's peak scales as N^2 / P: the N that P cards of this size
+        # would hold at C1's rate (an extrapolation, not a run).
+        ceiling = {q: int((q * total / max(per_n2)) ** 0.5) for q in (4, 8)}
+        m2c1 = {"n": C1_N, "groups": C1_GROUPS, "clusters": c1["counts"], "eps": c1["eps"],
+                "single_clusters": s_counts, "same_cluster": shares,
+                "fallback_codes": c1["codes"], "single_fallback_codes": s_codes,
+                "seconds": c1["seconds"], "phase_seconds_rank0": c1["phase_seconds"],
+                "l1_launches_per_rank": [r["m2"]["c1"]["l1_launches"] for r in ranks4],
+                "peak_gib_per_rank": peaks, "bytes_per_n2_over_p": per_n2,
+                "ceiling_n_extrapolated": ceiling}
+        print(f"M2 C1 streaming_cluster_groups over {p} gloo ranks, N={C1_N} x {C1_GROUPS}: "
+              f"clusters {c1['counts']} (one process {s_counts}), same cluster "
+              f"{[round(x, 6) for x in shares]}, fallback codes {c1['codes']} (one process "
+              f"{s_codes}); {c1['seconds']:.2f} s (phases, rank 0: "
+              f"{[{k: round(v, 2) for k, v in ph.items()} for ph in c1['phase_seconds']]}); "
+              f"L1 launches a rank {m2c1['l1_launches_per_rank']}; peak GiB a rank "
+              f"{[round(x, 3) for x in peaks]} = {[round(x, 2) for x in per_n2]} B per N^2/P; "
+              f"extrapolated: P cards of {total / 2**30:.1f} GiB hold N ~{ceiling}")
+        for r in ranks4:
+            check(all(np.array_equal(a, b) for a, b in zip(r["m2"]["c1"]["labels"],
+                                                            c1["labels"])),
+                  "M2: the ranks' labels differ")
+        check(all(x >= SAME_CLUSTER_MIN for x in shares) and c1["counts"] == s_counts,
+              f"M2 C1: against one process: {shares}, {c1['counts']} vs {s_counts}")
+        check(all(n > 0 for n in m2c1["l1_launches_per_rank"]),
+              "M2 C1: a rank did not launch the L1 kernel")
+        e1 = ranks4[0]["m2"]["e1"]
+        s_map, s_cmc, s_nv = PATH5_REF["e1"]
+        m2e1 = {"mAP": e1["mAP"], "single_mAP": s_map, "map_gap": abs(e1["mAP"] - s_map),
+                "cmc_equal": bool(np.array_equal(e1["cmc"], s_cmc)), "n_valid": e1["n_valid"],
+                "seconds": e1["seconds"],
+                "l1_launches_per_rank": [r["m2"]["e1"]["l1_launches"] for r in ranks4],
+                "peak_gib_per_rank": [r["m2"]["e1"]["peak_gib"] for r in ranks4]}
+        print(f"M2 E1 streaming_rerank_eval over {p} gloo ranks, {E1_Q} + {E1_G}: mAP "
+              f"{e1['mAP']:.6f} (one process {s_map:.6f}), CMC equal {m2e1['cmc_equal']}; "
+              f"{e1['seconds']:.2f} s; L1 launches a rank {m2e1['l1_launches_per_rank']}; peak "
+              f"GiB a rank {[round(x, 3) for x in m2e1['peak_gib_per_rank']]}")
+        check(m2e1["map_gap"] <= E1_MAP_TOL and m2e1["cmc_equal"] and e1["n_valid"] == s_nv,
+              f"M2 E1: {m2e1}")
+        check(all(n > 0 for n in m2e1["l1_launches_per_rank"]),
+              "M2 E1: a rank did not launch the L1 kernel")
+
+        # M3: the data-parallel step against T1's.
+        m3 = {}
+        for q, res in ((2, ranks2), (p, ranks4)):
+            r0 = res[0]["m3"]
+            name, err = r0["worst_grad_err"]
+            rel = abs(r0["loss"] - T1_REF["loss_card"]) / abs(T1_REF["loss_card"])
+            m3[f"p{q}"] = {"loss": r0["loss"], "loss_rel_vs_t1": rel, "worst_grad_err": err,
+                           "worst_tensor": name, "t1_cpu_worst": T1_REF["worst_cpu"],
+                           "seconds_first_step": r0["seconds_first"]}
+            print(f"M3 fp32 DP step over {q} gloo ranks, ResNet-50 batch 8: loss {r0['loss']:.7f} "
+                  f"(T1 card {T1_REF['loss_card']:.7f}, rel {rel:.2e}); worst gradient error "
+                  f"against T1's fp64 {err:.3e} ({name}), T1's CPU {T1_REF['worst_cpu']:.3e}")
+            check(rel <= T1_LOSS_REL and err <= 2.0 * T1_REF["worst_cpu"] + T1_GRAD_REL,
+                  f"M3 P{q}: {m3[f'p{q}']}")
+        bf = ranks4[0]["m3"]["bf16"]
+        m3["bf16_p4"] = bf
+        print(f"M3 bf16 DP step over {p} gloo ranks, ResNet-50 batch 64 ({64 // p} a rank): "
+              f"median {bf['device_ms']:.3f} ms (CUDA events, rank 0), {bf['host_ms']:.3f} ms "
+              f"on the host clock; losses {[round(x, 4) for x in bf['losses']]}")
+        check(all(np.isfinite(bf["losses"])), "M3: non-finite bf16 loss")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+    # M4: NCCL over P > 1 cards, only where the machine has them.
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        q = min(P7_RANKS, cards)
+        payload = {"phases": ("m1", "m3"), "m1_feats": None}
+        scratch = tempfile.mkdtemp(prefix="ssg_p7_nccl_")
+        try:
+            payload["m1_feats"] = os.path.join(scratch, "m1_feats.pt")
+            torch.save(feats.cpu(), payload["m1_feats"])
+            payload["t1_ref"] = os.path.join(scratch, "t1_ref.pt")
+            torch.save(T1_REF, payload["t1_ref"])
+            res = p7_spawn(_p7_gloo_ranks, q, "nccl", payload)
+        finally:
+            shutil.rmtree(scratch, ignore_errors=True)
+        r0 = res[0]
+        ref = m1_reference(res, dev)
+        shares = [same_cluster_share(r0["m1"]["labels"][g][None], ref["labels"][g][None])
+                  for g in range(len(counts))]
+        name, err = r0["m3"]["worst_grad_err"]
+        out["m4"] = {"ranks": q, "same_cluster": shares, "m1_seconds": r0["m1"]["seconds"],
+                     "m3_worst_grad_err": err}
+        print(f"M4 nccl over {q} cards: M1 same cluster {shares}, M3 worst gradient error {err}")
+        check(all(x >= SAME_CLUSTER_MIN for x in shares) and r0["m1"]["counts"] == ref["counts"]
+              and err <= 2.0 * T1_REF["worst_cpu"] + T1_GRAD_REL, f"M4: {out['m4']}")
+    else:
+        out["m4"] = "nccl P>1 not run (1 card)"
+        print("multi_gpu: nccl P>1 not run (1 card)")
+    out.update(m0=m0, nccl_duplicate=dup[0], m1=m1, m2={"c1": m2c1, "e1": m2e1}, m3=m3,
+               spawn_seconds={"p4": spawn4_s, "p2": spawn2_s},
+               seconds=time.perf_counter() - t_all)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -2099,6 +2649,17 @@ def main() -> int:
             "d2": data_dir["d2"]["l1_launches"],
             "d3_pretraining": data_dir["d3"]["pretrain"]["l1_launches"],
             "d3_selftraining": data_dir["d3"]["selftraining"]["l1_launches"]}
+
+        # 13. Path 7: multi-GPU (M0-M4); each rank's L1 count is set to 0
+        # before its phase and read after it.
+        multi_gpu = path7_multi_gpu(dev, root, os.path.join(root, "p1", "source_checkpoint.pth"),
+                                    feats, labels, counts)
+        multi_gpu["card"] = smi
+        kernels[0]["launches_path7"] = {
+            "m0": multi_gpu["m0"]["l1_launches"],
+            "m1_per_rank": multi_gpu["m1"]["launches_per_rank"],
+            "m2_c1_per_rank": multi_gpu["m2"]["c1"]["l1_launches_per_rank"],
+            "m2_e1_per_rank": multi_gpu["m2"]["e1"]["l1_launches_per_rank"]}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2133,6 +2694,7 @@ def main() -> int:
     print(json.dumps({"cli": cli}))
     print(json.dumps({"large_n": large_n}))
     print(json.dumps({"data_dir": data_dir}))
+    print(json.dumps({"multi_gpu": multi_gpu}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

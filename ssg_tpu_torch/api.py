@@ -22,6 +22,8 @@ from ssg_tpu_torch.ops.distance import pairwise_distance
 from ssg_tpu_torch.ops.metrics import rank_stats
 from ssg_tpu_torch.ops.rerank import _re_ranking_impl, re_ranking
 from ssg_tpu_torch.parallel import streaming_rerank_eval
+from ssg_tpu_torch.parallel.dp import shard_batch
+from ssg_tpu_torch.parallel.ring import all_gather
 
 __all__ = ["extract_features", "re_ranking", "cluster", "cluster_groups", "train",
            "pairwise_distance", "evaluate_all", "Evaluator"]
@@ -37,7 +39,7 @@ def _forward_eval(model, images_u8: torch.Tensor) -> torch.Tensor:
     return model(transforms.test_transform(images_u8))["embeddings"]
 
 
-def extract_features(model, batches, device=None):
+def extract_features(model, batches, device=None, mesh=None):
     """Part embeddings of every real row of ``batches``, in eval mode.
 
     ``batches`` iterates ``(images_u8, pids, cams, mask)`` (numpy or tensors;
@@ -48,14 +50,24 @@ def extract_features(model, batches, device=None):
     afterwards. Returns ``(features (num_parts, N, F) on device, pids, cams,
     fnames)``: ``fnames`` are ``batches.fnames`` (a ``Preprocessor``'s file
     names), or None for batches that name no files.
+
+    ``mesh`` (``parallel.make_mesh``, the model alike on every rank): each
+    rank forwards its slice of every batch (the batch must divide by the
+    mesh's size) and the embeddings are all-gathered in batch order, so
+    every rank returns the whole result, on the mesh's device.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    multi = mesh is not None and mesh.size > 1
     chunks, pids, cams, masks = [], [], [], []
     was_training = model.training
     model.eval()
     try:
         for images, p, c, mask in batches:
-            chunks.append(_forward_eval(model, torch.as_tensor(images, device=dev)))
+            if multi:
+                images = shard_batch(mesh, images)
+            emb = _forward_eval(model, torch.as_tensor(images, device=dev))
+            chunks.append(all_gather(mesh, emb.transpose(0, 1).contiguous()).transpose(0, 1)
+                          if multi else emb)
             pids.append(np.asarray(p))
             cams.append(np.asarray(c))
             masks.append(np.asarray(mask, dtype=bool))
@@ -164,17 +176,27 @@ class Evaluator:
     ``"concat"`` concatenates all branches and L2-normalises them (the SSG
     eval choice for multi-part models), or ``"whole"``, ``"up"``,
     ``"down"``.
+
+    ``mesh``: extract over its ranks (the batch rounded up to a multiple of
+    its size) and, with ``rerank=True``, always evaluate through the
+    streaming re-ranked evaluator over the mesh, as JAX does; every rank
+    returns the same metrics.
     """
 
-    def __init__(self, model, batch_size: int = 64, part: str = "concat", device=None):
+    def __init__(self, model, batch_size: int = 64, part: str = "concat", device=None,
+                 mesh=None):
         self.model = model
+        if mesh is not None and batch_size % mesh.size:
+            # Sharded extraction needs the (padded) batch to split evenly.
+            batch_size = -(-batch_size // mesh.size) * mesh.size
         self.batch_size = batch_size
         self.part = part
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
 
     def _feats(self, dataset, items):
         pre = Preprocessor(dataset, items=items, batch_size=self.batch_size)
-        feats, _, _, _ = extract_features(self.model, pre, device=self.device)
+        feats, _, _, _ = extract_features(self.model, pre, device=self.device, mesh=self.mesh)
         if self.part == "concat":
             f = torch.cat(list(feats), 1)
             return f / f.norm(dim=1, keepdim=True).clamp_min(1e-12)
@@ -186,14 +208,15 @@ class Evaluator:
         qf = self._feats(dataset, query)
         gf = self._feats(dataset, gallery)
         nq, ng = qf.shape[0], gf.shape[0]
-        if rerank and (nq + ng) ** 2 * 4 > DENSE_RERANK_BYTES:
-            # Market-1501 / DukeMTMC test splits and up: the dense chain
-            # would hold some thirty (Q+G)^2 buffers; the streaming
-            # evaluator reduces re-ranked query rows straight into CMC / mAP.
+        if rerank and (self.mesh is not None or (nq + ng) ** 2 * 4 > DENSE_RERANK_BYTES):
+            # Market-1501 / DukeMTMC test splits and up, and any mesh: the
+            # dense chain would hold some thirty (Q+G)^2 buffers; the
+            # streaming evaluator reduces re-ranked query rows straight into
+            # CMC / mAP.
             mAP, cmc, _ = streaming_rerank_eval(
                 qf, gf, q_ids=[p for _, p, _ in query], g_ids=[p for _, p, _ in gallery],
                 q_cams=[c for _, _, c in query], g_cams=[c for _, _, c in gallery],
-                device=self.device)
+                device=self.device, mesh=self.mesh)
             return _report(mAP, cmc, logger)
         if rerank:
             full = re_ranking(features=torch.cat([qf, gf]), device=self.device)

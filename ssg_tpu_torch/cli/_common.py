@@ -1,5 +1,5 @@
-"""What the three entry points share: the stdout log, the flags that are
-not ported yet, the dataset, the model and its weights."""
+"""What the three entry points share: the stdout log, joining the process
+group, the dataset, the model and its weights."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import torch
 from ssg_tpu_torch import models
 from ssg_tpu_torch.data import datasets
 from ssg_tpu_torch.models.convert import torch_state_dict
+from ssg_tpu_torch.parallel.multihost import initialize as initialize_multihost
 from ssg_tpu_torch.utils.logging import Logger
 from ssg_tpu_torch.utils.serialization import load_checkpoint
 
@@ -33,13 +34,15 @@ def logged_stdout(logs_dir: str, argv: list[str]):
         logger.close()
 
 
-def refuse_unported(args) -> None:
-    """Raise for a flag whose path the port does not have yet."""
-    if getattr(args, "data_parallel", False) or getattr(args, "multihost", False) or any(
-            getattr(args, f"dist_{k}", None) is not None
-            for k in ("coordinator", "num_processes", "process_id")):
-        raise NotImplementedError("--data_parallel, --multihost and --dist_*: multi-GPU "
-                                  "training is not ported yet (ROADMAP A9)")
+def maybe_init_multihost(args) -> None:
+    """``--multihost``: join the process group before anything touches the
+    card, from ``--dist_coordinator`` / ``--dist_num_processes`` /
+    ``--dist_process_id`` or, without them, torchrun's environment (the
+    root scripts' ``maybe_init_multihost``)."""
+    if getattr(args, "multihost", False):
+        initialize_multihost(coordinator=args.dist_coordinator,
+                             num_processes=args.dist_num_processes,
+                             process_id=args.dist_process_id, device=args.device)
 
 
 def dataset(args, name: str):

@@ -20,7 +20,7 @@ import time
 
 from ssg_tpu_torch import api
 from ssg_tpu_torch._device import resolve_device
-from ssg_tpu_torch.cli._common import dataset, logged_stdout, new_model, refuse_unported
+from ssg_tpu_torch.cli._common import dataset, logged_stdout, new_model
 from ssg_tpu_torch.data import datasets
 from ssg_tpu_torch.train.pretrain import PretrainConfig, run_pretrain
 
@@ -62,7 +62,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
     dev = resolve_device(args.device)
     with logged_stdout(args.logs_dir, argv) as logger:
         src = dataset(args, args.dataset)

@@ -12,8 +12,15 @@ defaults plus ``--device``. Example (synthetic data):
 ``checkpoint.pth``) or a reference / torchvision ``.pth`` / ``.tar`` file;
 ``--resume_loop`` continues an interrupted run from its
 ``logs_dir/checkpoint.pth``. ``--data_dir`` reads ``<data_dir>/<tgt_dataset>``
-as ``cli.prepare`` writes it. ``--data_parallel``, ``--multihost`` and
-``--dist_*`` raise: multi-GPU is not ported yet.
+as ``cli.prepare`` writes it.
+
+``--data_parallel`` runs the loop over the ranks of the process group
+(``parallel.make_mesh``): launch one process a card with ``torchrun
+--nproc_per_node=P -m ssg_tpu_torch.cli.selftraining --data_parallel ...``;
+without a group it is a mesh of one. ``--multihost`` joins the group
+explicitly first, from ``--dist_coordinator host:port
+--dist_num_processes P --dist_process_id i`` (one command a rank), or from
+torchrun's environment without them. NCCL takes one rank a card.
 """
 
 from __future__ import annotations
@@ -25,8 +32,8 @@ import torch
 
 from ssg_tpu_torch import api
 from ssg_tpu_torch._device import resolve_device
-from ssg_tpu_torch.cli._common import (checkpoint_state, dataset, logged_stdout, new_model,
-                                       refuse_unported)
+from ssg_tpu_torch.cli._common import (checkpoint_state, dataset, logged_stdout,
+                                       maybe_init_multihost, new_model)
 from ssg_tpu_torch.train.ssg_loop import SSGConfig
 
 
@@ -81,11 +88,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="k-reciprocal re-ranking at test time")
     p.add_argument("--dtype", type=str, default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--data_parallel", action="store_true",
-                   help="multi-GPU (not ported yet: ROADMAP A9)")
+                   help="over the ranks of the process group (torchrun or --multihost): "
+                        "sharded extraction, streaming clustering over the ranks, "
+                        "data-parallel fine-tuning")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-process runtime (not ported yet: ROADMAP A9)")
+                   help="join the process group before touching the card, from --dist_* "
+                        "or torchrun's environment")
     p.add_argument("--dist_coordinator", type=str, default=None,
-                   help="host:port for explicit clusters (not ported yet: ROADMAP A9)")
+                   help="host:port of rank 0's store for explicit clusters")
     p.add_argument("--dist_num_processes", type=int, default=None)
     p.add_argument("--dist_process_id", type=int, default=None)
     p.add_argument("--device", type=str, default="cuda",
@@ -116,7 +126,7 @@ def ssg_config(args) -> SSGConfig:
         warmup_epochs=args.warmup_epochs, weight_decay=args.weight_decay,
         num_parts=args.num_parts, height=args.height, width=args.width,
         print_freq=args.print_freq, seed=args.seed, eval_rerank=args.rerank,
-        logs_dir=args.logs_dir)
+        logs_dir=args.logs_dir, data_parallel=args.data_parallel)
 
 
 def run(args, model, tgt, dev, logger, **ssg_kwargs) -> int:
@@ -138,7 +148,7 @@ def run(args, model, tgt, dev, logger, **ssg_kwargs) -> int:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
+    maybe_init_multihost(args)
     dev = resolve_device(args.device)
     with logged_stdout(args.logs_dir, argv) as logger:
         print(f"device: {dev}")

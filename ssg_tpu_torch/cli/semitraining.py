@@ -21,8 +21,8 @@ from __future__ import annotations
 import sys
 
 from ssg_tpu_torch._device import resolve_device
-from ssg_tpu_torch.cli._common import (checkpoint_state, dataset, logged_stdout, new_model,
-                                       refuse_unported)
+from ssg_tpu_torch.cli._common import (checkpoint_state, dataset, logged_stdout,
+                                       maybe_init_multihost, new_model)
 from ssg_tpu_torch.cli.selftraining import build_parser as selftraining_parser
 from ssg_tpu_torch.cli.selftraining import run
 from ssg_tpu_torch.train.semi import one_shot_subset
@@ -41,7 +41,7 @@ def build_parser():
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
+    maybe_init_multihost(args)
     dev = resolve_device(args.device)
     with logged_stdout(args.logs_dir, argv) as logger:
         tgt = dataset(args, args.tgt_dataset)

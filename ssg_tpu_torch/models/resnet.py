@@ -19,6 +19,12 @@ half, lower half — each with its own head.
   serves as an exact reference).
 * ``BatchNorm2d`` / ``BatchNorm1d`` update their running variance with the
   biased batch variance, as Flax does; PyTorch's own use the unbiased one.
+  Inside ``data_parallel(mesh)`` (the data-parallel train step) a
+  train-mode BatchNorm takes its statistics over the global batch, the
+  ranks' slices together, as JAX's SPMD step does on the whole batch: one
+  all-reduce of the sums for the mean, one of the squared deviations for
+  the variance, both differentiable, and the global row count in the
+  biased running update.
 * Module names follow torchvision (``backbone.layer1.0.conv1``,
   ``downsample.0/1``, ``feat_whole``, ``feat_bn_whole``,
   ``classifier_whole``), so ``models/convert.py`` maps the JAX variables
@@ -62,6 +68,40 @@ from ssg_tpu_torch.ops.bottleneck import fold_bn, fused_bottleneck
 PART_NAMES = ("whole", "up", "down")
 
 _state = threading.local()  # .recomputing: inside a checkpoint's recomputation
+# The data-parallel step's mesh, while it runs. A process-wide value, not a
+# thread's: on the card the backward pass (and with it remat's
+# recomputation) runs on autograd's device thread.
+_dp = {"mesh": None}
+
+
+@contextlib.contextmanager
+def data_parallel(mesh):
+    """BatchNorms take global-batch statistics over ``mesh`` (a mesh of more
+    than one rank) for the ``with`` block: the train step's forward and
+    backward."""
+    _dp["mesh"] = mesh if mesh is not None and mesh.size > 1 else None
+    try:
+        yield
+    finally:
+        _dp["mesh"] = None
+
+
+def _global_batch_norm(x, weight, bias, eps: float, mesh):
+    """Train-mode batch norm over the global batch of equal rank slices:
+    (output in ``x``'s type, the global mean, the biased variance), in fp32
+    and differentiable through the two all-reduces."""
+    from ssg_tpu_torch.parallel.ring import all_reduce_sum_autograd
+
+    c = x.shape[1]
+    dims = [0] + list(range(2, x.dim()))
+    shape = [1, c] + [1] * (x.dim() - 2)
+    xf = x.float()
+    n = x.numel() // c * mesh.size
+    mean = all_reduce_sum_autograd(mesh, xf.sum(dims)) / n
+    xc = xf - mean.view(shape)
+    var = all_reduce_sum_autograd(mesh, (xc * xc).sum(dims)) / n
+    y = xc * torch.rsqrt(var + eps).view(shape) * weight.view(shape) + bias.view(shape)
+    return y.to(x.dtype), mean.detach(), var.detach()
 
 
 @contextlib.contextmanager
@@ -121,7 +161,9 @@ class _FlaxRunningVariance:
     is not kept: the momentum is fixed. Eval mode normalises with the
     running statistics. Both call ``F.batch_norm`` directly. Inside a
     checkpoint's recomputation (``recomputing``) it normalises with the
-    batch statistics and updates none of the module's."""
+    batch statistics and updates none of the module's. Inside
+    ``data_parallel`` the batch statistics are the global batch's
+    (``_global_batch_norm``), in the recomputation too."""
 
     _recompute_stats = None  # (mean, var) scratch for the recomputation
 
@@ -129,6 +171,14 @@ class _FlaxRunningVariance:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
+        mesh = _dp["mesh"]
+        if mesh is not None:
+            out, mean, var = _global_batch_norm(x, self.weight, self.bias, self.eps, mesh)
+            if not getattr(_state, "recomputing", False):
+                with torch.no_grad():
+                    self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+                    self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+            return out
         if getattr(_state, "recomputing", False):
             # The saved tensors must match the forward's, so the call keeps
             # its running statistics, as scratch ones that momentum 0 leaves

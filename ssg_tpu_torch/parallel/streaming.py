@@ -1,6 +1,7 @@
 """Streaming k-reciprocal clustering and re-ranked evaluation for large N.
 
-Counterpart of ``ssg_tpu/parallel/streaming.py`` on one device. The dense
+Counterpart of ``ssg_tpu/parallel/streaming.py``, on one device or over a
+mesh of ranks (``parallel/mesh.py``). The dense
 chain (``ops/rerank.py`` + ``cluster/``) keeps some thirty N^2-byte buffers
 alive at once; this pipeline keeps one fp32 V (and its query-expanded
 successor while it is built), bf16 copies of rh and V and bit-packed
@@ -30,8 +31,20 @@ adjacency, and recomputes distance rows chunk by chunk from the features:
 The JAX package's ``lax.cond`` and ``while_loop`` become Python branches on
 a host read: one read after the main sweep, one after eps, one a DBSCAN
 round; no read falls inside a chunk loop. Pair counts are int64 (the JAX
-package's int32 counts wrap at N >= 65,537). The stripe primitives are
-``parallel/_stripe.py``'s one-device forms.
+package's int32 counts wrap at N >= 65,537).
+
+Over a mesh of P ranks each rank holds the row stripe ``row0 = rank * r``,
+``r = npad / P`` of every (N, N) state, as JAX's shard_map does: the rank
+lists, the rh sizes, the row sums and the compacted V tables are
+all-gathered, the column maximum, the counts, histograms and flags are
+all-reduced (``parallel/ring.py``), and the stripe primitives
+(``parallel/_stripe.py``) rotate the other ranks' stripes past this one.
+The phase-3 sample takes one chunk a rank, so on P ranks it takes JAX's
+rows on ``make_mesh(P)``. Every flag that decides a branch is reduced
+before its host read, so all ranks take the same branch and their
+collectives stay aligned. Query expansion and the phase-2 rh products
+rotate each stripe once and serve every chunk a visit (JAX rotates them
+once a chunk): each output adds the same terms in the same order.
 """
 
 from __future__ import annotations
@@ -49,8 +62,8 @@ from ssg_tpu_torch.ops.metrics import rank_stats_hits, rank_stats_masked
 from ssg_tpu_torch.ops.minsum import (bound_product, compact_rows, fd_lower, minsum_upper,
                                       sparse_minsum_pairs, support_mask)
 from ssg_tpu_torch.ops.topk import exact_min_k
-from ssg_tpu_torch.parallel._stripe import (ring_contract, ring_gather_sum, ring_pairwise,
-                                            stripe_transpose_packed)
+from ssg_tpu_torch.parallel import ring
+from ssg_tpu_torch.parallel._stripe import ring_contract, ring_pairwise, stripe_transpose_packed
 
 _BINS = 8192
 # Coarse bins for the phase-3 sample histogram: it only locates the eps
@@ -143,27 +156,37 @@ def _recip_chunk(lists_all: torch.Tensor, row0: int, b: int, npad: int) -> torch
     return fwd & bwd[:b]
 
 
-def _phases12(f, n, k1, k2, lambda_value, b, n_vblk, l1_impl, support_cap=0, valid=None):
+def _phases12(f, n, k1, k2, lambda_value, b, n_vblk, l1_impl, support_cap=0, valid=None,
+              mesh=None):
     """Phases 1-2 (rank lists + V), shared by the clustering and the
     evaluation pipelines. Returns the closures that compute re-ranked
-    distance rows chunk by chunk, and the row validity.
+    distance rows of this rank's stripe chunk by chunk, the row validity
+    and the stripe's first row.
 
-    ``f`` is (npad, D) fp32 with npad a multiple of ``b``. Rows are valid
-    where ``valid`` says, or below ``n`` (the clustering path pads rows as
-    a suffix). With ``support_cap > 0`` the last element ``bound_ctx`` is
-    the bound-and-correct machinery of the main sweep (``ops/minsum.py``):
-    V rows compacted to (idx, val) tables, a bf16 V for the screening
-    product, and the ``bound_chunk`` / ``slot_fd_pairs`` closures;
-    ``bound_ctx["sup_ovf"]`` flags a V row whose support exceeds the
-    compaction width (the caller then takes the exact fallback)."""
+    ``f`` is (npad, D) fp32, every rank's copy alike, with npad a multiple
+    of P ``b``; the rank's stripe is rows ``row0 = rank * r`` to
+    ``row0 + r``, ``r = npad / P``. Rows are valid where ``valid`` says, or
+    below ``n`` (the clustering path pads rows as a suffix). With
+    ``support_cap > 0`` the element ``bound_ctx`` is the bound-and-correct
+    machinery of the main sweep (``ops/minsum.py``): the stripe's V rows
+    compacted to (idx, val) tables (all-gathered), a bf16 V for the
+    screening product, and the ``bound_chunk`` / ``slot_fd_pairs``
+    closures; ``bound_ctx["sup_ovf"]`` flags a V row of the stripe whose
+    support exceeds the compaction width (the caller reduces it over the
+    ranks and then takes the exact fallback)."""
     npad = f.shape[0]
     dev = f.device
-    n_chunks = npad // b
+    p, me = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    r = npad // p
+    row0 = me * r
+    f_loc = f[row0:row0 + r]
+    n_chunks = r // b
     half = int(round(k1 / 2.0))
     cb = npad // n_vblk  # V and rh are stored as n_vblk column blocks
     y2 = (f * f).sum(1)
     ids = torch.arange(npad, device=dev)
     col_valid = ids < n if valid is None else valid
+    grows = ids[row0:row0 + r]  # the stripe's global rows
 
     def blocks(x):
         return tuple(x[:, i * cb:(i + 1) * cb] for i in range(n_vblk))
@@ -175,11 +198,11 @@ def _phases12(f, n, k1, k2, lambda_value, b, n_vblk, l1_impl, support_cap=0, val
         return (x2 + y2[None, :] - 2.0 * (fc @ f.T)).clamp_min(0.0)
 
     def dist_chunk(c):
-        return sqdist(f[c * b:(c + 1) * b])
+        return sqdist(f_loc[c * b:(c + 1) * b])
 
     # ---- phase 1: rank lists + column max -------------------------------
-    nn1 = torch.empty((npad, k1 + 1), dtype=torch.int64, device=dev)
-    nn2 = None if k2 <= k1 + 1 else torch.empty((npad, k2), dtype=torch.int64, device=dev)
+    nn1 = torch.empty((r, k1 + 1), dtype=torch.int64, device=dev)
+    nn2 = None if k2 <= k1 + 1 else torch.empty((r, k2), dtype=torch.int64, device=dev)
     colmax = torch.full((npad,), float("-inf"), device=dev)
     for c in range(n_chunks):
         rows = slice(c * b, (c + 1) * b)
@@ -190,56 +213,114 @@ def _phases12(f, n, k1, k2, lambda_value, b, n_vblk, l1_impl, support_cap=0, val
         if nn2 is not None:
             nn2[rows] = exact_min_k(score, k2)[1]
         colmax = torch.maximum(
-            colmax, torch.where(col_valid[rows, None], d, float("-inf")).amax(0))
-    colmax = colmax.clamp_min(1e-12)
+            colmax, torch.where(col_valid[grows[rows], None], d, float("-inf")).amax(0))
+    colmax = ring.all_reduce(mesh, colmax, "max").clamp_min(1e-12)
+    nn1_all = ring.all_gather(mesh, nn1)
+    nnh_all = nn1_all[:, :half + 1]
     nnh = nn1[:, :half + 1]
     if nn2 is None:
         nn2 = nn1[:, :k2]
 
-    # rh as bf16 column blocks (the operand of the expansion GEMMs).
-    rhbf_blks = tuple(torch.empty((npad, cb), dtype=torch.bfloat16, device=dev)
+    # rh as bf16 column blocks of the stripe (the operand of the expansion
+    # GEMMs).
+    rhbf_blks = tuple(torch.empty((r, cb), dtype=torch.bfloat16, device=dev)
                       for _ in range(n_vblk))
     for c in range(n_chunks):
         rows = slice(c * b, (c + 1) * b)
-        m = _recip_chunk(nnh, c * b, b, npad) & col_valid[rows, None] & col_valid[None, :]
+        m = (_recip_chunk(nnh_all, row0 + c * b, b, npad) & col_valid[grows[rows], None]
+             & col_valid[None, :])
         for blk, mb in zip(rhbf_blks, blocks(m)):
             blk[rows] = mb
     # |Rh(i)| from the lists: every member j of nnh[i] with i in nnh[j]
     # (the lists hold distinct indices, as exact top-k gives them).
-    recip_m = (nnh[nnh] == ids[:, None, None]).any(-1)
+    recip_m = (nnh_all[nnh] == grows[:, None, None]).any(-1)
     szl = (recip_m & col_valid[nnh]).float().sum(1)
-    sz = torch.where(col_valid, szl, 0.0)
+    sz = ring.all_gather(mesh, torch.where(col_valid[grows], szl, 0.0))
 
     # ---- phase 2: V (column blocks) -------------------------------------
-    row_scale = colmax
+    row_scale = colmax[row0:row0 + r]
 
-    v_blks = tuple(torch.empty((npad, cb), device=dev) for _ in range(n_vblk))
+    def gemm_t(x, y):  # overlap[i, c] = sum_k x[i, k] y[c, k]
+        return x @ y.T
+
+    def recip(c):
+        return _recip_chunk(nn1_all, row0 + c * b, b, npad) & col_valid[None, :]
+
+    counts = None
+    if p > 1:
+        # Over ranks the rh stripes rotate once a contraction, not once a
+        # chunk: each visit adds its tiles to every chunk's integer counts
+        # (uint8 and int16 hold them exactly; the per-chunk form's bf16
+        # products of 0/1 operands are the same integers), so the overlap,
+        # qualify and expansion are the per-chunk form's, bit for bit.
+        ctype = torch.uint8 if k1 + 1 <= 255 else torch.int16
+        overlap_all = torch.zeros((r, npad), dtype=ctype, device=dev)
+        for i, rhb in enumerate(rhbf_blks):
+            block = rhb
+            for s in range(p):
+                cols = slice(((me - s) % p) * r, ((me - s) % p + 1) * r)
+                for c in range(n_chunks):
+                    rb = blocks(recip(c))[i].to(torch.bfloat16)
+                    overlap_all[c * b:(c + 1) * b, cols] += gemm_t(rb, block).to(ctype)
+                if s + 1 < p:
+                    block = ring.shift(mesh, block)
+        qualify_all = torch.empty((r, npad), dtype=torch.bool, device=dev)
+        for c in range(n_chunks):
+            rows = slice(c * b, (c + 1) * b)
+            qualify_all[rows] = recip(c) & (overlap_all[rows].float() > (2.0 / 3.0) * sz[None, :])
+        del overlap_all
+        counts = tuple(torch.zeros((r, cb), dtype=ctype, device=dev) for _ in range(n_vblk))
+        for cnt, rhb in zip(counts, rhbf_blks):
+            block = rhb
+            for s in range(p):
+                cols = slice(((me - s) % p) * r, ((me - s) % p + 1) * r)
+                for c in range(n_chunks):
+                    rows = slice(c * b, (c + 1) * b)
+                    q = qualify_all[rows, cols].to(torch.bfloat16)
+                    cnt[rows] += (q @ block).to(ctype)
+                if s + 1 < p:
+                    block = ring.shift(mesh, block)
+        del qualify_all
+
+    v_blks = tuple(torch.empty((r, cb), device=dev) for _ in range(n_vblk))
     for c in range(n_chunks):
         rows = slice(c * b, (c + 1) * b)
         orig = dist_chunk(c) / row_scale[rows, None]
-        r_chunk = _recip_chunk(nn1, c * b, b, npad) & col_valid[None, :]
+        r_chunk = recip(c)
         r_chunk_blks = blocks(r_chunk)
-        # overlap[i, c] = sum_k r[i, k] rh[c, k]: additive over column blocks.
-        overlap = sum(ring_contract(rb.to(torch.bfloat16), rhb.T)
-                      for rb, rhb in zip(r_chunk_blks, rhbf_blks))
-        qualify = (r_chunk & (overlap > (2.0 / 3.0) * sz[None, :])).to(torch.bfloat16)
-        expanded = torch.cat([r_chunk_blks[i] | (ring_contract(qualify, rhb) > 0.0)
-                              for i, rhb in enumerate(rhbf_blks)], 1)
+        if counts is not None:
+            expanded = torch.cat([rb | (cnt[rows] > 0) for rb, cnt in zip(r_chunk_blks, counts)],
+                                 1)
+        else:
+            # overlap is additive over column blocks.
+            overlap = sum(ring_pairwise(rb.to(torch.bfloat16), rhb, gemm_t, mesh)
+                          for rb, rhb in zip(r_chunk_blks, rhbf_blks))
+            qualify = (r_chunk & (overlap > (2.0 / 3.0) * sz[None, :])).to(torch.bfloat16)
+            expanded = torch.cat([r_chunk_blks[i] | (ring_contract(qualify, rhb, mesh) > 0.0)
+                                  for i, rhb in enumerate(rhbf_blks)], 1)
         w = torch.where(expanded, torch.exp(-orig), 0.0)
         v = w / w.sum(1, keepdim=True).clamp_min(1e-30)
         for blk, vb in zip(v_blks, blocks(v)):
             blk[rows] = vb
-    del rhbf_blks
+    del rhbf_blks, counts
 
-    # Query expansion: a k2-row gather-sum a chunk.
+    # Query expansion: a k2-row gather-sum. Each V block rotates once over
+    # the ranks; a visit adds its rows to every chunk, t ascending, in JAX's
+    # owner order (adding a masked 0 is exact), as JAX's per-chunk ring does.
     if k2 != 1:
-        vqe = tuple(torch.empty((npad, cb), device=dev) for _ in range(n_vblk))
-        for c in range(n_chunks):
-            rows = slice(c * b, (c + 1) * b)
-            for blk, vb in zip(vqe, v_blks):
-                blk[rows] = ring_gather_sum(nn2[rows], vb) / float(k2)
+        vqe = tuple(torch.zeros((r, cb), device=dev) for _ in range(n_vblk))
+        for blk, vb in zip(vqe, v_blks):
+            block = vb
+            for s in range(p):
+                owner = (me - s) % p
+                for c in range(n_chunks):
+                    rows = slice(c * b, (c + 1) * b)
+                    ring.gather_sum_visit(blk[rows], nn2[rows], block, owner * r)
+                if s + 1 < p:
+                    block = ring.shift(mesh, block)
+            blk /= float(k2)
         v_blks = vqe
-    s_all = sum(vb.sum(1) for vb in v_blks)
+    s_all = ring.all_gather(mesh, sum(vb.sum(1) for vb in v_blks))
 
     def l1_tile(x, y):
         return l1_distance(x, y, impl=l1_impl)
@@ -248,48 +329,53 @@ def _phases12(f, n, k1, k2, lambda_value, b, n_vblk, l1_impl, support_cap=0, val
         """Re-ranked distances of the given feature / V rows against all."""
         orig = sqdist(fc) / scale_rows[:, None]
         # ||V_i - V_j||_1 is additive over column blocks.
-        l1 = sum(ring_pairwise(vcb, vb, l1_tile) for vcb, vb in zip(vc_blks, v_blks))
+        l1 = sum(ring_pairwise(vcb, vb, l1_tile, mesh) for vcb, vb in zip(vc_blks, v_blks))
         s_mine = sum(vcb.sum(1) for vcb in vc_blks)
         min_sum = 0.5 * (s_mine[:, None] + s_all[None, :] - l1)
         jaccard = 1.0 - min_sum / (2.0 - min_sum)
         return (jaccard * (1.0 - lambda_value) + orig * lambda_value).clamp_min(0.0)
 
     def final_chunk(c):
-        """(b, npad) final re-ranked distances of chunk c's rows."""
+        """(b, npad) final re-ranked distances of the stripe's chunk c."""
         rows = slice(c * b, (c + 1) * b)
-        return _finalize(f[rows], row_scale[rows], tuple(vb[rows] for vb in v_blks))
+        return _finalize(f_loc[rows], row_scale[rows], tuple(vb[rows] for vb in v_blks))
 
     def final_rows(rows):
-        """``final_chunk`` for the non-contiguous rows ``rows`` (the phase-3
-        sample spreads its rows over the whole matrix)."""
-        return _finalize(f[rows], row_scale[rows], tuple(vb[rows] for vb in v_blks))
+        """``final_chunk`` for the non-contiguous stripe rows ``rows`` (the
+        phase-3 sample spreads its rows over the whole stripe)."""
+        return _finalize(f_loc[rows], row_scale[rows], tuple(vb[rows] for vb in v_blks))
 
     def rows_valid(rows):
-        """Upper-triangle pairs of ``rows`` whose row and column are valid."""
+        """Upper-triangle pairs of the global ``rows`` whose row and column
+        are valid."""
         return (ids[None, :] > rows[:, None]) & col_valid[rows][:, None] & col_valid[None, :]
 
     def chunk_valid(c):
-        return rows_valid(torch.arange(c * b, (c + 1) * b, device=dev))
+        return rows_valid(grows[c * b:(c + 1) * b])
 
     bound_ctx = None
     if support_cap > 0:
         s_sup = min(int(support_cap), npad)
         vbf_blks = tuple(vb.to(torch.bfloat16) for vb in v_blks)
-        cidx = torch.empty((npad, s_sup), dtype=torch.int64, device=dev)
-        cval = torch.empty((npad, s_sup), device=dev)
+        cidx = torch.empty((r, s_sup), dtype=torch.int64, device=dev)
+        cval = torch.empty((r, s_sup), device=dev)
         sup_ovf = torch.zeros((), dtype=torch.bool, device=dev)
         for c in range(n_chunks):
             rows = slice(c * b, (c + 1) * b)
             vrow = torch.cat([vb[rows] for vb in v_blks], 1)  # (b, npad)
             sup_ovf |= ((vrow > 0.0).sum(1) > s_sup).any()
             cidx[rows], cval[rows] = compact_rows(vrow, s_sup)
+        # The compacted V is small enough to hold everywhere, so the exact
+        # correction gathers locally.
+        cidx_all = ring.all_gather(mesh, cidx)
+        cval_all = ring.all_gather(mesh, cval)
 
         def bound_chunk(c):
             """(fd_lb, orig) for chunk c: a sound lower bound on the re-ranked
             distance from the bf16 mask-product upper bound on ms."""
             rows = slice(c * b, (c + 1) * b)
             orig = dist_chunk(c) / row_scale[rows, None]
-            g = sum(ring_pairwise(support_mask(vb[rows]), vbf, bound_product)
+            g = sum(ring_pairwise(support_mask(vb[rows]), vbf, bound_product, mesh)
                     for vb, vbf in zip(v_blks, vbf_blks))
             return fd_lower(minsum_upper(g), orig, lambda_value), orig
 
@@ -298,25 +384,27 @@ def _phases12(f, n, k1, k2, lambda_value, b, n_vblk, l1_impl, support_cap=0, val
             (bg, Q) row in the chunk and ``cols`` (bg, Q) column of each slot,
             ``o`` their normalised distances, from the compacted tables."""
             rg = c * b + rowl
-            ms = sparse_minsum_pairs(cidx[rg], cval[rg], cidx[cols], cval[cols])
+            ms = sparse_minsum_pairs(cidx[rg], cval[rg], cidx_all[cols], cval_all[cols])
             jac = 1.0 - ms / (2.0 - ms)
             return (jac * (1.0 - lambda_value) + o * lambda_value).clamp_min(0.0)
 
         bound_ctx = {"bound_chunk": bound_chunk, "slot_fd_pairs": slot_fd_pairs,
                      "sup_ovf": sup_ovf}
 
-    return final_chunk, final_rows, rows_valid, chunk_valid, col_valid, bound_ctx
+    return final_chunk, final_rows, rows_valid, chunk_valid, col_valid, row0, bound_ctx
 
 
 def _cluster_one(f, n, rho, k1, k2, lambda_value, min_samples, b, l1_impl, n_vblk,
-                 with_final, band_cap, support_cap, eps_cap, timed=False):
-    """The streaming pipeline for one feature group. Returns (labels (n,),
-    n_clusters, eps, band_fallback, fallback_code, diag_vec (9,), final,
-    seconds). With ``timed``, ``seconds`` holds each phase's host-clock
-    seconds, the device synchronised at each phase's end (six reads);
-    otherwise it is empty."""
+                 with_final, band_cap, support_cap, eps_cap, timed=False, mesh=None):
+    """The streaming pipeline for one feature group, on this rank's stripe.
+    Returns (labels (n,), n_clusters, eps, band_fallback, fallback_code,
+    diag_vec (9,), final, seconds), the same on every rank. With ``timed``,
+    ``seconds`` holds each phase's host-clock seconds, the device
+    synchronised at each phase's end (six reads); otherwise it is empty."""
     npad = f.shape[0]
     dev = f.device
+    p = 1 if mesh is None else mesh.size
+    r = npad // p
     seconds = {}
     t_last = [time.perf_counter()]
 
@@ -328,13 +416,14 @@ def _cluster_one(f, n, rho, k1, k2, lambda_value, min_samples, b, l1_impl, n_vbl
             seconds[name] = now - t_last[0]
             t_last[0] = now
 
-    n_chunks = npad // b
+    n_chunks = r // b
     cap = min(band_cap, npad)
     g_rows, gcap = _group_geometry(b, cap)
-    (final_chunk, final_rows, rows_valid, chunk_valid, col_valid,
+    (final_chunk, final_rows, rows_valid, chunk_valid, col_valid, row0,
      bound_ctx) = _phases12(f, n, k1, k2, lambda_value, b, n_vblk, l1_impl,
-                            support_cap=support_cap if cap > 0 else 0)
-    final = torch.cat([final_chunk(c) for c in range(n_chunks)]) if with_final else None
+                            support_cap=support_cap if cap > 0 else 0, mesh=mesh)
+    final = (ring.all_gather(mesh, torch.cat([final_chunk(c) for c in range(n_chunks)]))
+             if with_final else None)
     phase_end("phases12")
     rho32 = torch.tensor(rho, dtype=torch.float32, device=dev)
 
@@ -345,23 +434,23 @@ def _cluster_one(f, n, rho, k1, k2, lambda_value, min_samples, b, l1_impl, n_vbl
     def cidx(fd):
         return _to_bin(fd / w0, _BINS)
 
-    # One chunk's worth of rows spread over the matrix as a golden-ratio
-    # Weyl sequence (a coprime multiplier, so i -> i c mod r is a bijection):
-    # a contiguous chunk of identity-ordered features is a biased sample.
-    # The multiplier is the JAX package's, so the two sample the same rows.
-    r = npad
+    # One chunk's worth of rows a rank, spread over its stripe as a
+    # golden-ratio Weyl sequence (a coprime multiplier, so i -> i c mod r is
+    # a bijection): a contiguous chunk of identity-ordered features is a
+    # biased sample. The multiplier is the JAX package's, so the two sample
+    # the same rows on a mesh of the same size.
     c_mul = max(int(round(0.6180339887 * r)) | 1, 1)
     while math.gcd(c_mul, r) != 1:
         c_mul += 2
     rows_s = torch.as_tensor(np.fromiter(((i * c_mul) % r for i in range(b)), np.int64, count=b),
                              device=dev)
     fd0 = final_rows(rows_s)
-    tri0 = rows_valid(rows_s) & (fd0 != 0.0)
+    tri0 = rows_valid(row0 + rows_s) & (fd0 != 0.0)
     # Coarse sample bins (64 w0 wide) locate the k-th bin; a second level
     # re-histograms it at w0 / 2; the value sums below it are exact.
     w_s = hi0 / _BINS_S
     ci_s = _to_bin(fd0 / w_s, _BINS_S)
-    hs = _hist(torch.where(tri0, ci_s, _BINS_S), _BINS_S)
+    hs = ring.all_reduce(mesh, _hist(torch.where(tri0, ci_s, _BINS_S), _BINS_S))
     k_s = torch.round(rho32 * hs.sum().float()).long().clamp_min(1)
     cum_s = torch.cumsum(hs, 0)
     b_s = torch.searchsorted(cum_s, k_s).clamp_max(_BINS_S - 1)
@@ -370,12 +459,14 @@ def _cluster_one(f, n, rho, k1, k2, lambda_value, min_samples, b, l1_impl, n_vbl
     lo_s = b_s.float() * w_s
     in_b = tri0 & (ci_s == b_s)
     fi_s = _to_bin((fd0 - lo_s) / w_f, _BINS_S)
-    cum_f = below_s + torch.cumsum(_hist(torch.where(in_b, fi_s, _BINS_S), _BINS_S), 0)
+    cum_f = below_s + torch.cumsum(
+        ring.all_reduce(mesh, _hist(torch.where(in_b, fi_s, _BINS_S), _BINS_S)), 0)
     b_f = torch.searchsorted(cum_f, k_s).clamp_max(_BINS_S - 1)
     kth_lo = lo_s + b_f.float() * w_f
     kth_hi = kth_lo + w_f
     below_f = _at(cum_f, b_f, below_s)
-    sum_below_f = torch.where(tri0 & ((ci_s < b_s) | (in_b & (fi_s < b_f))), fd0, 0.0).sum()
+    sum_below_f = ring.all_reduce(
+        mesh, torch.where(tri0 & ((ci_s < b_s) | (in_b & (fi_s < b_f))), fd0, 0.0).sum())
     rem_s = (k_s - below_f).clamp_min(0).float()
     ksf = k_s.float()
     e_lo = (sum_below_f + rem_s * kth_lo) / ksf
@@ -396,7 +487,7 @@ def _cluster_one(f, n, rho, k1, k2, lambda_value, min_samples, b, l1_impl, n_vbl
     bg = b // g_rows
     xt = _tier_width(gcap)
     width = max(gcap, 1)
-    ng = npad // g_rows
+    ng = r // g_rows
     cand_col = torch.full((ng, width), npad, dtype=torch.int64, device=dev)
     cand_fd = torch.full((ng, width), float("inf"), device=dev)
     cand_row = torch.zeros((ng, width), dtype=torch.int64, device=dev)
@@ -413,7 +504,7 @@ def _cluster_one(f, n, rho, k1, k2, lambda_value, min_samples, b, l1_impl, n_vbl
     ovf = torch.tensor(cap == 0, device=dev)
     grp = torch.arange(bg, device=dev)[:, None]
     for c in range(n_chunks):
-        rows = torch.arange(c * b, (c + 1) * b, device=dev)
+        rows = torch.arange(row0 + c * b, row0 + (c + 1) * b, device=dev)
         if cap > 0:
             ok = (rows[:, None] < n) & col_valid[None, :]
             fd_lb, orig = bound_ctx["bound_chunk"](c)
@@ -461,18 +552,20 @@ def _cluster_one(f, n, rho, k1, k2, lambda_value, min_samples, b, l1_impl, n_vbl
 
     # Slot statistics (exact values for every pair with fd <= r_hi). Slot-row
     # a holds chunk a // bg's group a % bg, whose row t is chunk row
-    # t bg + a % bg.
+    # t bg + a % bg; rows_loc is the stripe row.
     arow = torch.arange(ng, device=dev)[:, None]
     rows_loc = (arow // bg) * b + (arow % bg) + cand_row * bg
     live = torch.isfinite(cand_fd)
-    slot_tri = live & (cand_fd != 0.0) & (cand_col > rows_loc)
+    slot_tri = live & (cand_fd != 0.0) & (cand_col > row0 + rows_loc)
     below_m = slot_tri & (cand_fd <= r_lo)
-    total = pruned + slot_tri.sum()
-    cnt_below = below_m.sum()
-    sum_below = torch.where(below_m, cand_fd, 0.0).sum()
     tri_c = slot_tri & (cand_fd > r_lo) & (cand_fd <= r_hi)  # region pairs
-    cnt_rtri = tri_c.sum()
+    total, cnt_below, cnt_rtri = ring.all_reduce(
+        mesh, torch.stack([pruned + slot_tri.sum(), below_m.sum(), tri_c.sum()]))
+    sum_below = ring.all_reduce(mesh, torch.where(below_m, cand_fd, 0.0).sum())
+    rmax, gmax = ring.all_reduce(mesh, torch.stack([rmax, gmax]), "max")
+    rsum = ring.all_reduce(mesh, rsum)
     sup_any = bound_ctx["sup_ovf"] if cap > 0 else torch.zeros((), dtype=torch.bool, device=dev)
+    ovf, sup_any = ring.all_reduce(mesh, torch.stack([ovf, sup_any]), "max")
     k = torch.round(rho32 * total.float()).long().clamp_min(1)
     kth_in = (cnt_below < k) & (k <= cnt_below + cnt_rtri)
     p_fast = kth_in & ~ovf & ~sup_any
@@ -480,7 +573,7 @@ def _cluster_one(f, n, rho, k1, k2, lambda_value, min_samples, b, l1_impl, n_vbl
     # with more of them than ecap (exact count) sends eps alone to the
     # exact two-sweep form, the adjacency fast path is unaffected.
     ecap = _default_eps_cap(g_rows, gcap) if eps_cap is None else min(int(eps_cap), width)
-    reg_ovf = (tri_c.sum(1) > ecap).any()
+    reg_ovf = ring.all_reduce(mesh, (tri_c.sum(1) > ecap).any(), "max")
 
     def eps_fast():
         """Closed-form eps from the compacted region only: a two-level
@@ -491,8 +584,8 @@ def _cluster_one(f, n, rho, k1, k2, lambda_value, min_samples, b, l1_impl, n_vbl
         w_a = (r_hi - r_lo) / _BINS
         i_a = _to_bin((rv - r_lo) / w_a, _BINS)
         flat_a = torch.where(rlive, i_a, _BINS)
-        hist_a = _hist(flat_a, _BINS)
-        sum_a = _bin_sums(flat_a, torch.where(rlive, rvals, 0.0), _BINS)
+        hist_a = ring.all_reduce(mesh, _hist(flat_a, _BINS))
+        sum_a = ring.all_reduce(mesh, _bin_sums(flat_a, torch.where(rlive, rvals, 0.0), _BINS))
         cum_a = cnt_below + torch.cumsum(hist_a, 0)
         bin_a = torch.searchsorted(cum_a, k).clamp_max(_BINS - 1)
         lo_b = r_lo + bin_a.float() * w_a
@@ -500,9 +593,10 @@ def _cluster_one(f, n, rho, k1, k2, lambda_value, min_samples, b, l1_impl, n_vbl
         in_a = rlive & (i_a == bin_a)
         i_b = _to_bin((rv - lo_b) / w_b, _BINS)
         flat_b = torch.where(in_a, i_b, _BINS)
-        hist_b = _hist(flat_b, _BINS)
-        sum_b = _bin_sums(flat_b, torch.where(in_a, rvals, 0.0), _BINS)
-        min_b = _bin_mins(flat_b, torch.where(in_a, rvals, float("inf")), _BINS)
+        hist_b = ring.all_reduce(mesh, _hist(flat_b, _BINS))
+        sum_b = ring.all_reduce(mesh, _bin_sums(flat_b, torch.where(in_a, rvals, 0.0), _BINS))
+        min_b = ring.all_reduce(
+            mesh, _bin_mins(flat_b, torch.where(in_a, rvals, float("inf")), _BINS), "min")
         below_a_cnt = _at(cum_a, bin_a, cnt_below)
         cum_b = below_a_cnt + torch.cumsum(hist_b, 0)
         bin_b = torch.searchsorted(cum_b, k).clamp_max(_BINS - 1)
@@ -522,6 +616,7 @@ def _cluster_one(f, n, rho, k1, k2, lambda_value, min_samples, b, l1_impl, n_vbl
             fd = final_chunk(c)
             tri = chunk_valid(c) & (fd != 0.0)
             hist0 += _hist(torch.where(tri, cidx(fd), _BINS), _BINS)
+        hist0 = ring.all_reduce(mesh, hist0)
         k = torch.round(rho32 * hist0.sum().float()).long().clamp_min(1)
         cum0 = torch.cumsum(hist0, 0)
         bin0 = torch.searchsorted(cum0, k).clamp_max(_BINS - 1)
@@ -544,6 +639,9 @@ def _cluster_one(f, n, rho, k1, k2, lambda_value, min_samples, b, l1_impl, n_vbl
             fsum += _bin_sums(flat, torch.where(inbin, fd, 0.0), _BINS)
             fmin = torch.minimum(fmin, _bin_mins(flat, torch.where(inbin, fd, float("inf")),
                                                  _BINS))
+        cnt_lo, fhist = ring.all_reduce(mesh, cnt_lo), ring.all_reduce(mesh, fhist)
+        sum_lo, fsum = ring.all_reduce(mesh, sum_lo), ring.all_reduce(mesh, fsum)
+        fmin = ring.all_reduce(mesh, fmin, "min")
         cum1 = cnt_lo + torch.cumsum(fhist, 0)
         bin1 = torch.searchsorted(cum1, k).clamp_max(_BINS - 1)
         below_cnt = _at(cum1, bin1, cnt_lo)
@@ -577,34 +675,36 @@ def _cluster_one(f, n, rho, k1, k2, lambda_value, min_samples, b, l1_impl, n_vbl
         sel = live & (cand_fd <= eps)
         byte = torch.where(sel, cand_col // 8, nbytes)  # column nbytes: dropped
         bit = torch.where(sel, 1 << (cand_col & 7), 0).to(torch.int32)
-        acc = torch.zeros(npad * (nbytes + 1), dtype=torch.int32, device=dev)
+        acc = torch.zeros(r * (nbytes + 1), dtype=torch.int32, device=dev)
         acc.scatter_add_(0, (rows_loc * (nbytes + 1) + byte).reshape(-1), bit.reshape(-1))
-        adj_p = acc.view(npad, nbytes + 1)[:, :nbytes].to(torch.uint8)
+        adj_p = acc.view(r, nbytes + 1)[:, :nbytes].to(torch.uint8)
         del acc
     else:
-        adj_p = torch.empty((npad, nbytes), dtype=torch.uint8, device=dev)
+        adj_p = torch.empty((r, nbytes), dtype=torch.uint8, device=dev)
         for c in range(n_chunks):
-            rows = torch.arange(c * b, (c + 1) * b, device=dev)
+            rows = torch.arange(row0 + c * b, row0 + (c + 1) * b, device=dev)
             ok = (rows[:, None] < n) & col_valid[None, :]
             adj_p[c * b:(c + 1) * b] = pack_bits((final_chunk(c) <= eps) & ok)
     # Symmetrise: OR on packed bytes is set union.
-    adj_p = adj_p | stripe_transpose_packed(adj_p)
+    adj_p = adj_p | stripe_transpose_packed(adj_p, mesh)
 
     big = npad
-    degree = torch.empty(npad, dtype=torch.int64, device=dev)
+    degree = torch.empty(r, dtype=torch.int64, device=dev)
     for c in range(n_chunks):
         degree[c * b:(c + 1) * b] = popcount(adj_p[c * b:(c + 1) * b]).sum(1)
-    core = degree >= min_samples
+    core_local = degree >= min_samples
+    core = ring.all_gather(mesh, core_local)
     phase_end("adjacency")
     core_p = pack_bits(core)  # column mask, packed
     idx = torch.arange(npad, device=dev)
-    adj_core_p = torch.where(core[:, None], adj_p & core_p[None, :], 0)
-    labels = torch.where(core, idx, big)
+    gidx = idx[row0:row0 + r]
+    adj_core_p = torch.where(core_local[:, None], adj_p & core_p[None, :], 0)
+    labels = ring.all_gather(mesh, torch.where(core_local, gidx, big))
 
     def neighbour_min(adj, labels):
-        """Each row's least label over its packed adjacency, a chunk of rows
-        unpacked at a time."""
-        out = torch.empty(npad, dtype=torch.int64, device=dev)
+        """Each stripe row's least label over its packed adjacency, a chunk
+        of rows unpacked at a time."""
+        out = torch.empty(r, dtype=torch.int64, device=dev)
         for c in range(n_chunks):
             a = unpack_bits(adj[c * b:(c + 1) * b], npad)
             out[c * b:(c + 1) * b] = torch.where(a, labels[None, :], big).amin(1)
@@ -616,7 +716,7 @@ def _cluster_one(f, n, rho, k1, k2, lambda_value, min_samples, b, l1_impl, n_vbl
     # the fixed point, the component minimum, is unchanged by the jump.
     rounds = 0
     while True:
-        new = torch.minimum(labels, neighbour_min(adj_core_p, labels))
+        new = ring.all_gather(mesh, torch.minimum(labels[gidx], neighbour_min(adj_core_p, labels)))
         hop = torch.where(new < big, new, 0)
         new = torch.where(new < big, torch.minimum(new, new[hop]), new)
         rounds += 1
@@ -625,7 +725,7 @@ def _cluster_one(f, n, rho, k1, k2, lambda_value, min_samples, b, l1_impl, n_vbl
         if done:
             break
 
-    core_neigh = neighbour_min(adj_p & core_p[None, :], labels)
+    core_neigh = ring.all_gather(mesh, neighbour_min(adj_p & core_p[None, :], labels))
     raw = torch.where(core, labels, core_neigh)
     is_root = core & (labels == idx)
     root_rank = torch.cumsum(is_root.long(), 0) - 1
@@ -638,20 +738,22 @@ def _cluster_one(f, n, rho, k1, k2, lambda_value, min_samples, b, l1_impl, n_vbl
             diag_vec, None if final is None else final[:n, :n], seconds)
 
 
-def _stripe_config(features, chunk, col_blocks, dev):
-    """Row padding, column blocking and the chunk. Returns (f, n, npad,
-    n_vblk, c), ``f`` fp32 on ``dev`` with a leading group axis kept.
+def _stripe_config(features, chunk, col_blocks, dev, p: int = 1):
+    """Row padding, column blocking and the chunk over ``p`` ranks. Returns
+    (f, n, npad, n_vblk, c), ``f`` fp32 on ``dev`` with a leading group axis
+    kept.
 
-    Rows pad to a multiple of lcm(chunk, 8) (8 for the packed adjacency
-    bytes). ``col_blocks`` stores V and rh as that many column blocks; the
-    default is 1, since a PyTorch buffer has no size limit (XLA's 2 GiB
-    limit makes the JAX package pick more above 1 GiB). Every consumer
-    decomposes additively over the blocks.
+    Rows pad to a multiple of lcm(p chunk, 8 p), as JAX's (each rank's
+    stripe r = npad / p a multiple of 8 for the packed adjacency bytes),
+    and the chunk divides r. ``col_blocks`` stores V and rh as that many
+    column blocks; the default is 1, since a PyTorch buffer has no size
+    limit (XLA's 2 GiB limit makes the JAX package pick more above 1 GiB).
+    Every consumer decomposes additively over the blocks.
     """
     f = torch.as_tensor(features, device=dev).float()
     n = f.shape[-2]
-    base = chunk if n > chunk else 1
-    mult = math.lcm(base, 8)
+    base = p * chunk if n > p * chunk else p
+    mult = math.lcm(base, 8 * p)
     npad = _round_up(n, mult)
     if npad > n:
         pad = torch.zeros((*f.shape[:-2], npad - n, f.shape[-1]), device=dev)
@@ -659,10 +761,19 @@ def _stripe_config(features, chunk, col_blocks, dev):
     n_vblk = 1 if col_blocks is None else int(col_blocks)
     if npad % n_vblk:
         raise ValueError(f"col_blocks {n_vblk} must divide {npad}")
-    c = min(chunk, npad)
-    while npad % c:
+    r = npad // p
+    c = min(chunk, r)
+    while r % c:
         c -= 1
     return f, n, npad, n_vblk, c
+
+
+def _size(mesh) -> int:
+    return 1 if mesh is None else mesh.size
+
+
+def _mesh_device(mesh, device):
+    return resolve_device(device) if mesh is None else mesh.device
 
 
 def _default_band_cap(npad: int) -> int:
@@ -688,10 +799,12 @@ def streaming_cluster(features, k1: int = 20, k2: int = 6, lambda_value: float =
                       l1_impl: str = "auto", col_blocks: int | None = None,
                       return_final: bool = False, band_cap: int | None = None,
                       support_cap: int = 128, eps_cap: int | None = None,
-                      diag: dict | None = None, device=None):
+                      diag: dict | None = None, device=None, mesh=None):
     """k-reciprocal re-ranking + auto-eps DBSCAN without the (N, N) distance
     matrices: one fp32 V and packed / bf16 state, distance rows recomputed
-    chunk by chunk from ``features`` (N, D).
+    chunk by chunk from ``features`` (N, D). With ``mesh`` (``make_mesh``)
+    the state is row-sharded over its ranks, each holding ``features``
+    alike; the call is collective and every rank returns the same result.
 
     Returns (labels (N,) np.int32, n_clusters, eps), equal to ``api.cluster``
     of ``api.re_ranking`` (eps to fp32 histogram exactness). With
@@ -711,15 +824,16 @@ def streaming_cluster(features, k1: int = 20, k2: int = 6, lambda_value: float =
     2, 4, 8, 16; see ``_cluster_one``), the region edges, the candidate
     counts, the DBSCAN rounds and ``seconds``, each phase's host-clock time
     (the device is synchronised at each phase's end only when ``diag`` is
-    given). Runs on the card unless ``device="cpu"``.
+    given). Runs on the card unless ``device="cpu"`` (with a mesh, on the
+    mesh's device).
     """
-    dev = resolve_device(device)
-    f, n, npad, n_vblk, c = _stripe_config(features, chunk, col_blocks, dev)
+    dev = _mesh_device(mesh, device)
+    f, n, npad, n_vblk, c = _stripe_config(features, chunk, col_blocks, dev, _size(mesh))
     band_cap = _default_band_cap(npad) if band_cap is None else int(band_cap)
     labels, n_clusters, eps, band_fallback, fb_code, dv, final, secs = _cluster_one(
         f, n, float(rho), min(int(k1), n - 1), min(int(k2), n - 1), float(lambda_value),
         int(min_samples), c, l1_impl, n_vblk, return_final, band_cap, int(support_cap), eps_cap,
-        timed=diag is not None)
+        timed=diag is not None, mesh=mesh)
     if diag is not None:
         _fill_diag(diag, band_fallback, fb_code, dv)
         diag["seconds"] = secs
@@ -734,7 +848,7 @@ def streaming_cluster_groups(features, k1: int = 20, k2: int = 6, lambda_value: 
                              l1_impl: str = "auto", col_blocks: int | None = None,
                              band_cap: int | None = None, support_cap: int = 128,
                              eps_cap: int | None = None, diag: dict | None = None,
-                             device=None):
+                             device=None, mesh=None):
     """``streaming_cluster`` for every feature group of ``features`` (G, N,
     D) (or a list of (N, D)), the SSG whole / upper / lower embeddings. Each
     group's result equals a separate ``streaming_cluster`` call.
@@ -742,15 +856,16 @@ def streaming_cluster_groups(features, k1: int = 20, k2: int = 6, lambda_value: 
     Returns (labels (G, N) np.int32, counts list[int], eps list[float]).
     ``diag`` (a dict) receives per-group lists ``band_fallback``,
     ``fallback_code`` and ``seconds`` and the (G, 9) array ``diag_vec``.
+    ``mesh`` as ``streaming_cluster``'s.
     """
-    dev = resolve_device(device)
+    dev = _mesh_device(mesh, device)
     if isinstance(features, (list, tuple)):
         features = torch.stack([torch.as_tensor(x, device=dev) for x in features])
-    f, n, npad, n_vblk, c = _stripe_config(features, chunk, col_blocks, dev)
+    f, n, npad, n_vblk, c = _stripe_config(features, chunk, col_blocks, dev, _size(mesh))
     band_cap = _default_band_cap(npad) if band_cap is None else int(band_cap)
     outs = [_cluster_one(fg, n, float(rho), min(int(k1), n - 1), min(int(k2), n - 1),
                          float(lambda_value), int(min_samples), c, l1_impl, n_vblk, False,
-                         band_cap, int(support_cap), eps_cap, timed=diag is not None)
+                         band_cap, int(support_cap), eps_cap, timed=diag is not None, mesh=mesh)
             for fg in f]
     if diag is not None:
         diag["band_fallback"] = [o[3] for o in outs]
@@ -765,66 +880,98 @@ def streaming_rerank_eval(query_features, gallery_features, q_ids, g_ids, q_cams
                           k1: int = 20, k2: int = 6, lambda_value: float = 0.1,
                           chunk: int = 512, l1_impl: str = "auto",
                           col_blocks: int | None = None, diag: dict | None = None,
-                          device=None):
+                          device=None, mesh=None):
     """Test-time k-reciprocal re-ranked evaluation without the (N, N)
     re-ranked matrix or its (Q, G) block, market1501 protocol.
 
-    Phases 1-2 build V as ``streaming_cluster`` does over concat(query,
-    gallery); then one sweep over the query rows (first in the layout, so
-    it visits only ceil(Q / chunk) chunks) reduces each chunk of re-ranked
-    rows to additive CMC / mAP statistics (``rank_stats_hits``; a chunk
-    with a query of more than 64 relevant columns is redone with the
-    argsort form after the sweep). Equal to ``api.evaluate_all`` of the
+    Phases 1-2 build V as ``streaming_cluster`` does over the query and
+    gallery rows; then one sweep over the query rows reduces each chunk of
+    re-ranked rows to additive CMC / mAP statistics (``rank_stats_hits``;
+    a chunk with a query of more than 64 relevant columns is redone with
+    the argsort form after the sweep). Equal to ``api.evaluate_all`` of the
     dense ``re_ranking(concat(qf, gf))[:Q, Q:]`` up to summation order.
 
-    Returns (mAP, cmc (100,) np array, n_valid_queries). ``diag`` (a dict)
-    receives ``final_rows``, the first query chunk's re-ranked distances to
-    the gallery ((min(chunk, Q), G), the rows the sweep ranked), to hold
-    against the dense matrix.
+    Layout, JAX's: each rank's stripe holds ceil(Q / P) query rows first,
+    then its ceil(G / P) gallery rows, so the sweep visits only
+    ceil(ceil(Q / P) / chunk) chunks of each stripe (the same count on
+    every rank, whose ring collectives must stay aligned). On one device
+    that is the queries, then the gallery.
+
+    Returns (mAP, cmc (100,) np array, n_valid_queries), the same on every
+    rank of ``mesh``. ``diag`` (a dict) receives ``final_rows``, this
+    rank's first query chunk's re-ranked distances to the gallery columns
+    (the rows the sweep ranked), to hold against the dense matrix.
     """
-    dev = resolve_device(device)
+    dev = _mesh_device(mesh, device)
+    p, me = (1, 0) if mesh is None else (mesh.size, mesh.rank)
     qf = torch.as_tensor(query_features, device=dev).float()
     gf = torch.as_tensor(gallery_features, device=dev).float()
     nq, ng = qf.shape[0], gf.shape[0]
-    f, n, npad, n_vblk, c = _stripe_config(torch.cat([qf, gf]), chunk, col_blocks, dev)
+    n = nq + ng
+    qr, gr = -(-nq // p), -(-ng // p)  # query / gallery slots a rank
+    base = p * chunk if n > p * chunk else p
+    npad = _round_up(p * (qr + gr), math.lcm(base, 8 * p))
+    r = npad // p
+    c = min(chunk, r)
+    while r % c:
+        c -= 1
+    n_vblk = 1 if col_blocks is None else int(col_blocks)
+    if npad % n_vblk:
+        raise ValueError(f"col_blocks {n_vblk} must divide {npad}")
 
-    def ids(x):
-        return torch.as_tensor(np.asarray(x, dtype=np.int64), device=dev)
+    # src[i]: the row of concat(qf, gf) at layout slot i (-1: padding).
+    src = np.full(npad, -1, np.int64)
+    is_q = np.zeros(npad, bool)
+    for k in range(p):
+        q0, q1 = k * qr, min((k + 1) * qr, nq)
+        if q1 > q0:
+            src[k * r:k * r + q1 - q0] = np.arange(q0, q1)
+            is_q[k * r:k * r + q1 - q0] = True
+        g0, g1 = k * gr, min((k + 1) * gr, ng)
+        if g1 > g0:
+            src[k * r + qr:k * r + qr + g1 - g0] = nq + np.arange(g0, g1)
+    live = src >= 0
+    ids_all = np.concatenate([np.asarray(q_ids, np.int64), np.asarray(g_ids, np.int64)])
+    cams_all = np.concatenate([np.asarray(q_cams, np.int64), np.asarray(g_cams, np.int64)])
 
-    slots = torch.arange(npad, device=dev)
-    valid = slots < n
-    row_qmask = slots < nq
+    def slot(x):
+        return torch.as_tensor(np.where(live, x[np.where(live, src, 0)], 0), device=dev)
+
+    valid = torch.as_tensor(live, device=dev)
+    row_qmask = torch.as_tensor(is_q, device=dev)
     col_gmask = valid & ~row_qmask
-    zeros = torch.zeros(npad, dtype=torch.int64, device=dev)
-    row_qid, row_qcam = zeros.clone(), zeros.clone()
-    row_qid[:nq], row_qcam[:nq] = ids(q_ids), ids(q_cams)
-    col_gid, col_gcam = zeros.clone(), zeros.clone()
-    col_gid[nq:n], col_gcam[nq:n] = ids(g_ids), ids(g_cams)
+    ids, cams = slot(ids_all), slot(cams_all)
+    allf = torch.cat([qf, gf, qf.new_zeros((1, qf.shape[1]))])
+    f = allf[torch.as_tensor(np.where(live, src, n), device=dev)]
 
-    final_chunk, _, _, _, _, _ = _phases12(
+    final_chunk, _, _, _, _, row0, _ = _phases12(
         f, n, min(int(k1), n - 1), min(int(k2), n - 1), float(lambda_value), c, n_vblk,
-        l1_impl, valid=valid)
+        l1_impl, valid=valid, mesh=mesh)
 
     def stats(ch, fn):
-        rows = slice(ch * c, (ch + 1) * c)
+        rows = slice(row0 + ch * c, row0 + (ch + 1) * c)
         fd = final_chunk(ch)
         if ch == 0 and diag is not None:
-            diag["final_rows"] = fd[:min(c, nq), nq:n]
-        return fn(fd, row_qid[rows], col_gid, row_qcam[rows], col_gcam,
-                  row_qmask[rows], col_gmask)
+            diag["final_rows"] = fd[:min(c, qr), col_gmask]
+        return fn(fd, ids[rows], ids, cams[rows], cams, row_qmask[rows], col_gmask)
 
     ap = torch.zeros((), device=dev)
     cmc = torch.zeros(100, device=dev)
     nv = torch.zeros((), dtype=torch.int64, device=dev)
     ovfs = []
-    for ch in range(-(-nq // c)):
+    for ch in range(-(-qr // c)):
         a, cm, v, o = stats(ch, rank_stats_hits)
         ap = ap + torch.where(o, 0.0, a)
         cmc = cmc + torch.where(o, 0.0, cm)
         nv = nv + torch.where(o, 0, v)
         ovfs.append(o)
-    for ch in torch.nonzero(torch.stack(ovfs)).flatten().tolist():
+    # A chunk is redone on every rank where any rank overflowed (its ring
+    # collectives must stay aligned); a rank adds it only where it did.
+    mine = torch.stack(ovfs)
+    for ch in torch.nonzero(ring.all_reduce(mesh, mine, "max")).flatten().tolist():
         a, cm, v = stats(ch, rank_stats_masked)
-        ap, cmc, nv = ap + a, cmc + cm, nv + v
+        if mine[ch]:
+            ap, cmc, nv = ap + a, cmc + cm, nv + v
+    ap, cmc, nv = ring.all_reduce(mesh, ap), ring.all_reduce(mesh, cmc), ring.all_reduce(mesh, nv)
     denom = max(int(nv), 1)
     return float(ap) / denom, cmc.cpu().numpy() / denom, int(nv)

@@ -15,8 +15,14 @@ labels, remapped to a dense range, with its noise masked.
 The model is an ``nn.Module`` updated in place; its mode is switched
 between eval (extract, evaluation) and train (fine-tuning) here and in the
 entry points, and a ``fused_eval`` model refolds its blocks after every
-update (``models/resnet.py``). ``data_parallel`` (the JAX package's mesh)
-comes with the multi-GPU slice.
+update (``models/resnet.py``).
+
+``data_parallel`` runs the loop over the ranks of ``parallel.make_mesh``
+(torchrun's process group, else a mesh of one), as the JAX package's mesh
+does: rank 0's weights are broadcast once, the extraction is sharded, the
+clustering is ``streaming_cluster_groups`` over the mesh, fine-tuning is
+the data-parallel step and evaluation the mesh ``Evaluator``; only rank 0
+writes the checkpoint, and a resume reads the same file on every rank.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from ssg_tpu_torch import api
 from ssg_tpu_torch._device import resolve_device
 from ssg_tpu_torch.data.preprocessor import Preprocessor
 from ssg_tpu_torch.data.sampler import RandomIdentitySampler
+from ssg_tpu_torch.parallel import make_mesh, replicate, streaming_cluster_groups
 from ssg_tpu_torch.train.schedule import lr_at, make_optimizer
 from ssg_tpu_torch.train.semi import affiliate_clusters
 from ssg_tpu_torch.train.trainer import Trainer, make_train_step
@@ -71,7 +78,7 @@ class SSGConfig:
     seed: int = 0
     eval_rerank: bool = False
     logs_dir: str = "logs"  # holds checkpoint.pth and model_best.pth
-    data_parallel: bool = False  # multi-GPU: not ported yet (ROADMAP A9)
+    data_parallel: bool = False  # over the ranks of parallel.make_mesh
 
 
 def _dense_remap_keep_noise(labels: np.ndarray) -> np.ndarray:
@@ -118,10 +125,14 @@ def run_ssg(model, tgt, config: SSGConfig | None = None, logger=None, evaluate_e
     optimizer state intact.
     """
     cfg = config or SSGConfig()
+    mesh = None
     if cfg.data_parallel:
-        raise NotImplementedError("data_parallel: multi-GPU training is not ported yet "
-                                  "(ROADMAP A9, slice 5)")
-    dev = resolve_device(device)
+        mesh = make_mesh(device=device)
+        if cfg.batch_size % mesh.size:
+            raise ValueError(f"batch_size {cfg.batch_size} must be divisible by the mesh size "
+                             f"{mesh.size} under data_parallel")
+        print(f"data-parallel over {mesh.size} ranks ({mesh.backend or 'one process'})")
+    dev = resolve_device(device) if mesh is None else mesh.device
     semi = one_shot is not None and ce_weight > 0.0
     model.to(dev)
     if dev.type == "cuda":
@@ -137,11 +148,14 @@ def run_ssg(model, tgt, config: SSGConfig | None = None, logger=None, evaluate_e
         optimizer.load_state_dict(ckpt["optimizer"])
         start_iter = int(ckpt["iteration"]) + 1
         print(f"Resumed from {resume_from}: continuing at iteration {start_iter}")
+    if mesh is not None:
+        replicate(mesh, model)
     generator = torch.Generator(device=dev).manual_seed(cfg.seed)
     step = make_train_step(model, optimizer, margin=cfg.margin, num_parts=cfg.num_parts,
                            ce_weight=ce_weight if semi else 0.0, height=cfg.height,
-                           width=cfg.width)
-    trainer = Trainer(step, optimizer, print_freq=cfg.print_freq, logger=logger, device=dev)
+                           width=cfg.width, mesh=mesh)
+    trainer = Trainer(step, optimizer, print_freq=cfg.print_freq, logger=logger, device=dev,
+                      mesh=mesh)
     history = []
     best_map = -1.0
 
@@ -150,16 +164,19 @@ def run_ssg(model, tgt, config: SSGConfig | None = None, logger=None, evaluate_e
 
         # 1) Extract multi-branch features for the unlabeled target train set.
         pre = Preprocessor(tgt, items=tgt.train, batch_size=cfg.batch_size)
-        feats, _, cams, fnames = api.extract_features(model, pre, device=dev)
+        feats, _, cams, fnames = api.extract_features(model, pre, device=dev, mesh=mesh)
         n = feats.shape[1]
         t_extract = time.time() - t_iter
 
         # 2) Per feature group: k-reciprocal re-rank + auto-eps DBSCAN on the card.
         t_cluster = time.time()
         rho_it = cfg.rho * (1.0 + cfg.rho_growth) ** it
-        labels, counts, epss = api.cluster_groups(
-            feats, k1=cfg.k1, k2=cfg.k2, lambda_value=cfg.lambda_value, rho=rho_it,
-            min_samples=cfg.min_samples, device=dev)
+        analytics = dict(k1=cfg.k1, k2=cfg.k2, lambda_value=cfg.lambda_value, rho=rho_it,
+                         min_samples=cfg.min_samples, device=dev)
+        if mesh is not None:
+            labels, counts, epss = streaming_cluster_groups(feats, mesh=mesh, **analytics)
+        else:
+            labels, counts, epss = api.cluster_groups(feats, **analytics)
         cluster_info = list(zip(counts, epss))
         t_cluster = time.time() - t_cluster
 
@@ -227,16 +244,17 @@ def run_ssg(model, tgt, config: SSGConfig | None = None, logger=None, evaluate_e
                  "loss": loss_sum / max(steps, 1)}
         is_best = False
         if tgt.query and (it % evaluate_every == 0 or it == cfg.iterations - 1):
-            ev = api.Evaluator(model, batch_size=cfg.batch_size, device=dev)
+            ev = api.Evaluator(model, batch_size=cfg.batch_size, device=dev, mesh=mesh)
             res = ev.evaluate(tgt, rerank=cfg.eval_rerank, logger=logger)
             entry["mAP"] = res["mAP"]
             entry["rank1"] = float(res["cmc"][0])
             is_best = res["mAP"] > best_map
             best_map = max(best_map, res["mAP"])
         t_eval = time.time() - t_eval
-        save_checkpoint({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                         "iteration": it},
-                        is_best, fpath=os.path.join(cfg.logs_dir, "checkpoint.pth"))
+        if mesh is None or mesh.rank == 0:
+            save_checkpoint({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                             "iteration": it},
+                            is_best, fpath=os.path.join(cfg.logs_dir, "checkpoint.pth"))
         entry.update(extract_seconds=t_extract, cluster_seconds=t_cluster,
                      train_seconds=t_train, eval_seconds=t_eval)
         history.append(entry)

@@ -13,6 +13,19 @@ in it waits for the device; ``Trainer`` reads the losses back only every
 
 bf16 policy: the model computes its backbone in bf16 from fp32 master
 weights, the optimizer state is fp32 and the losses are fp32.
+
+Data parallel (``mesh`` of P > 1 ranks, ``parallel/mesh.py``): JAX's step
+is the one-device program on the whole batch, split over the mesh, so the
+port's DP step computes that same function. Each rank forwards its slice
+of the batch; the BatchNorms take global-batch statistics
+(``models.resnet.data_parallel``); the embeddings (and logits) are
+gathered with ``parallel.ring.gather_rows``, so the batch-hard triplet
+searches the global batch and the SSG++ cross-entropy divides by the
+global count of labelled rows; the crops and flips are drawn for the
+global batch from the one generator, then sliced. Every rank computes the
+one global loss, each backpropagates through its own slice only, and the
+gradients are summed over the ranks (``parallel.dp.all_reduce_grads``), so
+every rank takes the same optimizer step.
 """
 
 from __future__ import annotations
@@ -28,7 +41,10 @@ from ssg_tpu_torch._device import resolve_device
 from ssg_tpu_torch.data import transforms
 from ssg_tpu_torch.data.prefetch import prefetch
 from ssg_tpu_torch.loss.oim import oim_loss
+from ssg_tpu_torch.models.resnet import data_parallel
 from ssg_tpu_torch.ops.triplet import batch_hard_triplet_loss
+from ssg_tpu_torch.parallel.dp import all_reduce_grads, shard_batch
+from ssg_tpu_torch.parallel.ring import gather_rows
 from ssg_tpu_torch.train.schedule import set_learning_rate
 from ssg_tpu_torch.utils.meters import AverageMeter
 
@@ -37,7 +53,7 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, margin: float = 0.3
                     num_parts: int = 3, ce_weight: float = 0.0, height: int = 256,
                     width: int = 128, remat: bool = False, oim_weight: float = 0.0,
                     oim_temperature: float = 0.1, oim_momentum: float = 0.5,
-                    lut: torch.Tensor | None = None) -> Callable:
+                    lut: torch.Tensor | None = None, mesh=None) -> Callable:
     """Build the SSG train step.
 
     ``step(images_u8 (B, H, W, 3), labels, generator, crops=None) ->
@@ -61,18 +77,28 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, margin: float = 0.3
     ``remat``: each residual block recomputes its activations in the
     backward pass (``models/resnet.py``): less memory for one more forward
     of the backbone, with the same loss, gradients and BatchNorm statistics.
+
+    ``mesh``: data parallel over its ranks (the module docstring); the
+    model must hold the same weights on every rank (``parallel.dp.
+    replicate``). ``images_u8`` is then this rank's slice of the batch,
+    while ``labels`` and ``crops`` are the global batch's. Dropout draws
+    each rank's rows from its own device generator.
     """
     if oim_weight > 0.0 and lut is None:
         raise ValueError("oim_weight > 0 needs the OIM table: pass lut=")
+    dp = mesh if mesh is not None and mesh.size > 1 else None
 
     def step(images_u8: torch.Tensor, labels: torch.Tensor, generator=None, crops=None):
         if crops is None:
-            crops = transforms.draw_crops(generator, *images_u8.shape[:3])
+            crops = transforms.draw_crops(generator, labels.shape[-1], *images_u8.shape[1:3])
+        if dp is not None:
+            crops = tuple(shard_batch(dp, t) for t in crops)
         x = transforms.normalize_float(
             transforms.crop_flip(images_u8, *crops, height, width), torch.float32)
         model.train()
-        out = model(x, remat=remat)
-        emb = out["embeddings"]  # (num_parts, B, F)
+        with data_parallel(dp):
+            out = model(x, remat=remat)
+        emb = gather_rows(dp, out["embeddings"], 1)  # (num_parts, B, F)
         total = emb.new_zeros(())
         precs = []
         for g in range(num_parts):
@@ -84,7 +110,8 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, margin: float = 0.3
             mask = id_labels >= 0
             n = mask.sum().clamp_min(1)
             for g in range(num_parts):
-                ce = F.cross_entropy(out["logits"][g], id_labels.clamp_min(0), reduction="none")
+                logits = gather_rows(dp, out["logits"][g], 0)
+                ce = F.cross_entropy(logits, id_labels.clamp_min(0), reduction="none")
                 total = total + ce_weight * torch.where(mask, ce, 0.0).sum() / n
         new_lut = None
         if oim_weight > 0.0:
@@ -93,7 +120,10 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, margin: float = 0.3
             oim, new_lut = oim_loss(lut, w, labels[num_parts], oim_temperature, oim_momentum)
             total = total + oim_weight * oim
         optimizer.zero_grad(set_to_none=True)
-        total.backward()
+        with data_parallel(dp):
+            total.backward()
+        if dp is not None:
+            all_reduce_grads(dp, [q for group in optimizer.param_groups for q in group["params"]])
         optimizer.step()
         if new_lut is not None:
             lut.copy_(new_lut)
@@ -103,21 +133,30 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, margin: float = 0.3
 
 
 class Trainer:
-    """Epoch loop with the reference's meters and printing (SURVEY.md §3.4)."""
+    """Epoch loop with the reference's meters and printing (SURVEY.md §3.4).
+
+    With ``mesh`` each host batch is sliced to this rank's share before it
+    is uploaded (the step is ``make_train_step(..., mesh=mesh)``'s); every
+    rank iterates the same batches."""
 
     def __init__(self, step_fn: Callable, optimizer: torch.optim.Optimizer,
-                 print_freq: int = 10, logger=None, device=None):
+                 print_freq: int = 10, logger=None, device=None, mesh=None):
         self.step_fn = step_fn
         self.optimizer = optimizer
         self.print_freq = print_freq
         self.logger = logger
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.device = resolve_device(device) if mesh is None else mesh.device
 
     def _host(self, batch_iter):
         """(images, labels) numpy batches -> CPU tensors, pinned when the
-        step runs on the card (on the producer thread, off the step's way)."""
+        step runs on the card (on the producer thread, off the step's way).
+        With a mesh the images are this rank's slice of the batch
+        (``parallel.dp.shard_batch``), the labels the whole batch's."""
         pin = self.device.type == "cuda"
         for images, labels in batch_iter:
+            if self.mesh is not None:
+                images = shard_batch(self.mesh, images)
             images = torch.from_numpy(np.ascontiguousarray(images))
             labels = torch.from_numpy(np.ascontiguousarray(labels, dtype=np.int64))
             yield (images.pin_memory(), labels.pin_memory()) if pin else (images, labels)
@@ -141,7 +180,7 @@ class Trainer:
         for i, (images, labels) in enumerate(batches):
             metrics = self.step_fn(images.to(self.device, non_blocking=True),
                                    labels.to(self.device, non_blocking=True), generator)
-            pending.append((i, images.shape[0], metrics))
+            pending.append((i, labels.shape[-1], metrics))
             steps += 1
             batch_time.update(time.time() - end)
             end = time.time()

@@ -150,13 +150,27 @@ def test_semitraining_cli_resume_mismatched_heads(pretrained, tmp_path):
 
 
 @pytest.mark.parametrize("cli,flags,match", [
-    (selftraining, ["--data_parallel"], "A9"),
-    (selftraining, ["--multihost"], "A9"),
-    (semitraining, ["--dist_coordinator", "localhost:1234"], "A9"),
+    (selftraining, ["--data_parallel"], None),
+    (selftraining, ["--multihost"], "no coordinator"),
+    (semitraining, ["--multihost", "--dist_coordinator", "localhost:1234"], "num_processes"),
 ])
-def test_unported_flags_raise(tmp_path, cli, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(["--device", "cpu", "--logs_dir", str(tmp_path)] + flags)
+def test_unported_flags_raise(tmp_path, cli, flags, match, monkeypatch):
+    """The multi-GPU flags are ported: ``--data_parallel`` reaches the loop's
+    config (a mesh of one without a process group; the loop over ranks is
+    held to JAX in tests/test_torch_dp.py), and ``--multihost`` raises only
+    for what its launch lacks: torchrun's environment, or the ``--dist_*``
+    that go with a coordinator."""
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    with mock.patch.object(cli, "run", return_value=0) as run:
+        argv = SMALL + ["--logs_dir", str(tmp_path)] + flags
+        if match is None:
+            assert cli.main(argv) == 0
+            assert selftraining.ssg_config(run.call_args.args[0]).data_parallel
+        else:
+            with pytest.raises(ValueError, match=match):
+                cli.main(argv)
+            run.assert_not_called()
 
 
 def test_cuda_is_the_default_device(tmp_path):

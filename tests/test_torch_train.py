@@ -41,6 +41,7 @@ from ssg_tpu_torch.data.prefetch import prefetch
 from ssg_tpu_torch.data.sampler import RandomIdentitySampler
 from ssg_tpu_torch.loss import TripletLoss
 from ssg_tpu_torch.models.convert import from_jax_variables
+from ssg_tpu_torch.parallel import Mesh
 from ssg_tpu_torch.ops.triplet import batch_hard_triplet_loss
 from ssg_tpu_torch.train import semi
 from ssg_tpu_torch.train.schedule import lr_at, make_optimizer, set_learning_rate
@@ -494,5 +495,10 @@ def test_run_ssg_iteration0_matches_jax_and_resumes(tmp_path):
         assert float(restored[i]["step"]) == float(saved[i]["step"]) == ours["steps"]
     for key, value in ckpt["model"].items():
         assert torch.equal(resumed.state_dict()[key], value), key
-    with pytest.raises(NotImplementedError, match="A9"):
-        run_ssg(resumed, tgt, SSGConfig(data_parallel=True), device="cpu")
+    # data_parallel: the batch must divide over the mesh's ranks, as JAX
+    # requires (checked before any work; the loop over ranks is held to JAX
+    # in tests/test_torch_dp.py).
+    three = Mesh(None, 0, 3, torch.device("cpu"), "gloo")
+    with mock.patch("ssg_tpu_torch.train.ssg_loop.make_mesh", return_value=three), \
+            pytest.raises(ValueError, match="divisible"):
+        run_ssg(resumed, tgt, SSGConfig(data_parallel=True, **_LOOP), device="cpu")
