@@ -5,7 +5,7 @@ Run from the repository root on a machine with a card and ``nvcc``:
 
     python3 chip_smoke.py
 
-It drives seven paths through the port's entry points at full width, the
+It drives eight paths through the port's entry points at full width, the
 first two on bench config-1's workload (``bench.py``): SSG ResNet-50 (bf16,
 random weights from seed 0) extracting 3 part groups from N = 3368 synthetic
 Market-1501 images in batches of 128, then per group k-reciprocal
@@ -73,7 +73,13 @@ DBSCAN (min_samples=4):
   8) over 2 and 4 ranks and T2's bf16 step (batch 64) over 4, timed; M4,
   M1 and M3 over NCCL at P = min(4, cards), only where the machine has 2+
   cards. The kernels are built before the ranks spawn; each rank group
-  joins within a timeout and every rank must exit 0 within P7_JOIN_S.
+  joins within a timeout and every rank must exit 0 within P7_JOIN_S;
+* path 8, the entry points around the package (``path8_entries``): R1,
+  ``data.synthetic_device.DeviceRenderer`` over config-1's 3368 items on
+  the card; B1, ``bench_torch.run()`` (``bench.py``'s workload: the
+  device-rendered config-1 extract and ``cluster_groups``, then
+  ``streaming_cluster`` on 16,384 seeded 2048-d features); E1,
+  ``ssg_tpu_torch.entry.entry()``'s fp32 forward.
 
 It checks them:
 
@@ -143,13 +149,22 @@ It checks them:
    of T1's and its summed gradients within T1's rule (twice the CPU's error
    against fp64, plus 1e-3), the bf16 losses finite; M4 as M1 and M3, or
    the line ``multi_gpu: nccl P>1 not run (1 card)``. Its seconds are
-   gloo's through host memory on one card, not NCCL's.
+   gloo's through host memory on one card, not NCCL's;
+11. runs path 8 and checks it: R1's core on the card within one level of
+   the core on the CPU fed the same draws, the renderer's first batch equal
+   to its core's, and the same items in batches of 7 equal to it; it prints
+   the render seconds beside path 1's host render + upload; B1 prints
+   exactly ``bench.py``'s keys in its order, finite positive seconds, at
+   least one cluster in each group and in the streaming run, and launches
+   the L1 kernel 3 times in each ``cluster_groups`` call (warm-up and timed)
+   and at least once in each streaming run; E1's embeddings within
+   ENTRY_TOL of ``api.extract_features``'s on the same model.
 
-Any failed check ends the run with a nonzero exit. The last eight lines
-are path 3's ``train`` JSON, path 4's ``cli`` JSON, path 5's ``large_n``
-JSON, path 6's ``data_dir`` JSON, path 7's ``multi_gpu`` JSON, the
-kernels' JSON, the card's name and power limit from ``nvidia-smi``, and
-``{"ok": true, "device": {...}}``.
+Any failed check ends the run with a nonzero exit. The last nine lines are
+path 3's ``train`` JSON, path 4's ``cli`` JSON, path 5's ``large_n`` JSON,
+path 6's ``data_dir`` JSON, path 7's ``multi_gpu`` JSON, path 8's
+``entries`` JSON, the kernels' JSON, the card's name and power limit from
+``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -172,12 +187,15 @@ import torch
 
 import torch.nn.functional as F
 
+import bench_torch
 from ssg_tpu_torch import api, models, resolve_device
 from ssg_tpu_torch.cli import prepare as prepare_cli
 from ssg_tpu_torch.cli import pretraining, selftraining, semitraining
 from ssg_tpu_torch.cluster import dbscan, select_eps
 from ssg_tpu_torch.data import Preprocessor, datasets, native_loader, transforms
-from ssg_tpu_torch.data.synthetic import RAW_H, RAW_W
+from ssg_tpu_torch.data.synthetic import RAW_H, RAW_W, _seed_for
+from ssg_tpu_torch.data.synthetic_device import DeviceRenderer, draw, render
+from ssg_tpu_torch.entry import entry
 from ssg_tpu_torch.dist_metric import DistanceMetric
 from ssg_tpu_torch.evaluation_metrics import accuracy, cmc, mean_ap
 from ssg_tpu_torch.feature_extraction import FeatureDatabase, extract_cnn_feature
@@ -282,16 +300,15 @@ def l1_bound_ms(m: int, n: int, d: int, symmetric: bool = False) -> tuple[float,
 
 
 def path_model(dev: torch.device, fused_eval: bool = False):
-    """The bf16 SSG ResNet-50 with random weights from seed 0, on ``dev``."""
-    model = models.create("resnet50", num_features=0, num_parts=3, dtype=torch.bfloat16,
-                          fused_eval=fused_eval)
-    model.reset_parameters(torch.Generator().manual_seed(0))
-    return model.eval().to(dev, memory_format=torch.channels_last)
+    """The bf16 SSG ResNet-50 with random weights from seed 0, on ``dev``
+    (``bench_torch``'s model)."""
+    return bench_torch.bench_model(dev, fused_eval=fused_eval)
 
 
 def main_path_inputs(dev: torch.device):
     """The bench config-1 image batches, rendered on the host and uploaded,
-    and the bf16 SSG ResNet-50 with random weights from seed 0, on ``dev``."""
+    the bf16 SSG ResNet-50 with random weights from seed 0, on ``dev``, and
+    the seconds of the render and upload."""
     ds = datasets.create("market1501", scale=0.45, seed=0)
     items = (ds.train + ds.query + ds.gallery)[:N]
     check(len(items) == N, f"synthetic dataset too small: {len(items)}")
@@ -299,8 +316,9 @@ def main_path_inputs(dev: torch.device):
     batches = [(torch.from_numpy(im).to(dev), p, c, mk)
                for im, p, c, mk in Preprocessor(ds, items=items, batch_size=BATCH)]
     torch.cuda.synchronize()
-    print(f"render + upload {len(batches)} batches: {time.perf_counter() - t0:.1f} s")
-    return batches, path_model(dev)
+    seconds = time.perf_counter() - t0
+    print(f"render + upload {len(batches)} batches: {seconds:.1f} s")
+    return batches, path_model(dev), seconds
 
 
 def dist_bound_ms(m: int, n: int, d: int, symmetric: bool = False,
@@ -2469,6 +2487,125 @@ def path7_multi_gpu(dev: torch.device, root: str, p1_ckpt: str, feats, labels, c
     return out
 
 
+# Path 8: the entry points around the package and the model options.
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "extract_seconds", "extract_imgs_per_s",
+              "cluster_seconds_3groups", "clusters", "device", "streaming_n16384_seconds",
+              "streaming_n16384_clusters")  # bench.py's, in its order
+ENTRY_TOL = 1e-6  # entry()'s fn against api.extract_features: the same calls on the same card
+
+
+def r1_device_render(dev: torch.device, host_render_s: float) -> tuple[dict, list]:
+    """R1: ``DeviceRenderer`` over config-1's N items in batches of BATCH on
+    the card, timed after a one-batch warm-up; the core on the card against
+    the core on the CPU with the same draws, the renderer's first batch
+    against the core, and that batch again in batches of 7."""
+    ds = datasets.create("market1501", scale=0.45, seed=0)
+    items = (ds.train + ds.query + ds.gallery)[:N]
+    renderer = DeviceRenderer(ds, device=dev)
+    list(renderer.batches(items[:BATCH], BATCH))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = list(renderer.batches(items, BATCH))
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+
+    first = items[:BATCH]
+    pids = torch.tensor([p for _, p, _ in first])
+    cams = torch.tensor([c for _, _, c in first])
+    dy, dx, noise = draw([_seed_for(f, ds.seed) for f, _, _ in first], dev)
+    card = render(renderer.palette, renderer.cam_tint, pids.to(dev), cams.to(dev), dy, dx, noise)
+    cpu = render(renderer.palette.cpu(), renderer.cam_tint.cpu(), pids, cams, dy.cpu(), dx.cpu(),
+                 noise.cpu())
+    diff = (card.cpu().int() - cpu.int()).abs()
+    max_level, equal_share = int(diff.max()), float((diff == 0).float().mean())
+    small = torch.cat([im[torch.from_numpy(mk).to(dev)]
+                       for im, _, _, mk in renderer.batches(first, 7)])
+    print(f"R1 device render of {N} items ({len(batches)} batches of {BATCH}): {render_s:.3f} s "
+          f"on the card, against path 1's host render + upload {host_render_s:.1f} s; core card "
+          f"against CPU on the same draws: max {max_level} level(s), {equal_share:.7f} equal")
+    check(max_level <= 1, f"R1: the card's render is {max_level} levels from the CPU's")
+    check(torch.equal(batches[0][0], card), "R1: the renderer's batch is not its core's")
+    check(torch.equal(small, card), "R1: batches of 7 render other pixels than batches of 128")
+    return {"render_seconds": render_s, "host_render_upload_seconds": host_render_s,
+            "card_vs_cpu_max_level": max_level, "card_vs_cpu_equal_share": equal_share}, batches
+
+
+@contextlib.contextmanager
+def l1_launches_per_call(module, name: str, out: list):
+    """``module.name`` wrapped for the ``with`` block: each call appends the
+    L1 kernel launches it made to ``out``."""
+    fn = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        before = l1.launches
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            out.append(l1.launches - before)
+
+    setattr(module, name, counted)
+    try:
+        yield out
+    finally:
+        setattr(module, name, fn)
+
+
+def b1_bench_torch() -> dict:
+    """B1: ``bench_torch.run()`` on the card, its L1 launches counted per
+    call of ``cluster_groups`` (warm-up, timed) and ``streaming_cluster``."""
+    per_cluster, per_stream = [], []
+    with l1_launches_per_call(bench_torch.api, "cluster_groups", per_cluster), \
+            l1_launches_per_call(bench_torch.streaming, "streaming_cluster", per_stream):
+        l1.launches = 0
+        t0 = time.perf_counter()
+        out = bench_torch.run()
+        seconds = time.perf_counter() - t0
+        launches = l1.launches
+    print(f"B1 bench_torch.run: {seconds:.1f} s in all; L1 launches {launches} (cluster_groups "
+          f"{per_cluster}, streaming_cluster {per_stream})")
+    check(tuple(out) == BENCH_KEYS, f"B1: keys {list(out)} are not bench.py's")
+    for k in ("value", "extract_seconds", "cluster_seconds_3groups", "streaming_n16384_seconds"):
+        check(np.isfinite(out[k]) and out[k] > 0, f"B1: {k} = {out[k]}")
+    check(len(out["clusters"]) == 3 and min(out["clusters"]) > 0,
+          f"B1: clusters {out['clusters']}")
+    check(out["streaming_n16384_clusters"] > 0, "B1: no streaming clusters")
+    check(per_cluster == [3, 3], f"B1: cluster_groups launched the L1 kernel {per_cluster} "
+                                 "times, expected 3 a call")
+    check(len(per_stream) == 2 and min(per_stream) >= 1,
+          f"B1: streaming_cluster launched the L1 kernel {per_stream} times")
+    return {"bench": out, "seconds": seconds, "l1_launches": launches,
+            "l1_cluster_groups": per_cluster, "l1_streaming_cluster": per_stream}
+
+
+def e1_entry(dev: torch.device, images: torch.Tensor) -> dict:
+    """E1: ``entry()``'s fn on its own zeros and on 8 rendered images,
+    against ``api.extract_features`` of the same model."""
+    fn, (model, zeros) = entry()
+    errs = []
+    meta = np.zeros(8, np.int32)
+    for x in (zeros, images[:8]):
+        emb = fn(model, x)
+        feats = api.extract_features(model, [(x, meta, meta, np.ones(8, bool))])[0]
+        check(tuple(emb.shape) == (3, 8, 2048) and bool(torch.isfinite(emb).all()),
+              f"E1: embeddings {tuple(emb.shape)}")
+        errs.append(float((emb - feats).abs().max()))
+    print(f"E1 entry() fp32 forward against api.extract_features: max abs err {errs} "
+          "(zeros, rendered)")
+    check(max(errs) <= ENTRY_TOL, f"E1: entry() is {max(errs):.3e} from extract_features")
+    return {"max_abs_err": errs}
+
+
+def path8_entries(dev: torch.device, host_render_s: float) -> dict:
+    """Path 8: R1 the device renderer, B1 bench_torch and E1 entry()."""
+    t0 = time.perf_counter()
+    r1, batches = r1_device_render(dev, host_render_s)
+    images = batches[0][0]
+    del batches
+    b1 = b1_bench_torch()
+    e1 = e1_entry(dev, images)
+    return {"r1": r1, "b1": b1, "e1": e1, "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -2515,7 +2652,7 @@ def main() -> int:
     check_fp32_blocks(dev)
 
     # 3. Main path.
-    batches, model = main_path_inputs(dev)
+    batches, model, host_render_s = main_path_inputs(dev)
     feats, _, _, _ = api.extract_features(model, batches)
     api.cluster_groups(feats, **ANALYTICS)  # warm-up: cuDNN/cuBLAS plans, kernel load
     torch.cuda.synchronize()
@@ -2663,6 +2800,13 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+    # 14. Path 8: the device renderer, bench_torch (its L1 count set to 0
+    # before run() and read after) and entry().
+    entries = path8_entries(dev, host_render_s)
+    kernels[0]["launches_path8"] = {"bench_torch": entries["b1"]["l1_launches"],
+                                    "cluster_groups": entries["b1"]["l1_cluster_groups"],
+                                    "streaming_cluster": entries["b1"]["l1_streaming_cluster"]}
+
     # Bottleneck and stage rows: per batch of the path (the 12 identity
     # blocks; the four stages), errors in bf16 ulps (bf16_ulp_error).
     for op, row, replaces in (
@@ -2695,6 +2839,7 @@ def main() -> int:
     print(json.dumps({"large_n": large_n}))
     print(json.dumps({"data_dir": data_dir}))
     print(json.dumps({"multi_gpu": multi_gpu}))
+    print(json.dumps({"entries": entries}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -162,7 +162,7 @@ def main() -> int:
     dev = resolve_device()
     if args.train:
         return profile_train(dev, smi, args.remat)
-    batches, model = main_path_inputs(dev)
+    batches, model, _ = main_path_inputs(dev)
     if args.fused_eval:
         model = path_model(dev, fused_eval=True)
     feats, _, _, _ = api.extract_features(model, batches)

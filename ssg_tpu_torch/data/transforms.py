@@ -16,7 +16,10 @@ Counterpart of ``ssg_tpu/data/transforms.py``:
   ``compute_weight_mat`` builds them, applied as two batched fp32 products
   (TF32 off, ``_device.py``). ``F.interpolate`` cannot crop a fractional
   box. The random streams differ from JAX's; the boxes' distribution and
-  the resampling of a given box are what match.
+  the resampling of a given box are what match. ``train_transform``,
+  ``random_sized_rect_crop`` and ``random_horizontal_flip`` are the JAX
+  package's names over the two, taking a ``torch.Generator`` where JAX
+  takes a key.
 """
 
 from __future__ import annotations
@@ -126,3 +129,27 @@ def crop_flip(images: torch.Tensor, boxes: torch.Tensor, flips: torch.Tensor,
     out = torch.bmm(rows, wx)  # (B, height C, width)
     return out.reshape(b, height, c, width).transpose(2, 3)
 
+
+def random_sized_rect_crop(generator: torch.Generator, images: torch.Tensor, height: int,
+                           width: int) -> torch.Tensor:
+    """Batched RandomSizedRectCrop: each image's ``draw_crops`` box
+    resampled to (height, width), fp32 on the 0..255 scale."""
+    b, h, w, _ = images.shape
+    boxes, _ = draw_crops(generator, b, h, w)
+    return crop_flip(images, boxes, torch.zeros_like(boxes[:, 0], dtype=torch.bool), height,
+                     width)
+
+
+def random_horizontal_flip(generator: torch.Generator, images: torch.Tensor) -> torch.Tensor:
+    """Mirror each (B, H, W, C) image with probability 0.5: the flips of
+    ``draw_crops``."""
+    _, flips = draw_crops(generator, *images.shape[:3])
+    return torch.where(flips[:, None, None, None], images.flip(2), images)
+
+
+def train_transform(generator: torch.Generator, images_u8: torch.Tensor, height: int = 256,
+                    width: int = 128, dtype=torch.float32) -> torch.Tensor:
+    """Train-time pipeline: random crop -> flip -> normalise, the boxes and
+    flips drawn by one ``draw_crops``, as the train step draws them."""
+    boxes, flips = draw_crops(generator, *images_u8.shape[:3])
+    return normalize_float(crop_flip(images_u8, boxes, flips, height, width), dtype)

@@ -9,8 +9,10 @@ variables: the port's own copy of the mapping in
 package's ``{'params', 'batch_stats'}`` numpy tree of an ``SSGResNet`` or
 an ``SSGInception`` into tensors that the port's model of the same name
 (``models.resnet.SSGResNet``, ``models.inception.SSGInception``) takes in
-``load_state_dict``; the Inception's module names are Flax's, so only the
-leaves are renamed:
+``load_state_dict``. ``to_jax_variables`` is its inverse (the JAX
+package's ``torch_to_flax``), so a model trained here goes back to the JAX
+package. The Inception's module names are Flax's, so only the leaves are
+renamed:
 
   conv ``kernel`` (kh, kw, I, O) -> ``weight`` (O, I, kh, kw)
   dense ``kernel`` (I, O)        -> ``weight`` (O, I)
@@ -69,6 +71,45 @@ def from_jax_variables(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     walk(variables.get("params", {}), "")
     walk(variables.get("batch_stats", {}), "")
     return out
+
+
+def to_jax_variables(state_dict: Mapping[str, Any]) -> dict:
+    """Convert a state_dict of an ``SSGResNet`` or ``SSGInception`` to Flax
+    ``{'params': ..., 'batch_stats': ...}`` numpy trees, the inverse of
+    ``from_jax_variables``. ``num_batches_tracked`` has no Flax leaf and is
+    dropped."""
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree: dict, path: list[str], value: np.ndarray):
+        for key in path[:-1]:
+            tree = tree.setdefault(key, {})
+        tree[path[-1]] = value
+
+    for key, value in state_dict.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        # "layer1.0.conv2" -> "layer1_0/conv2"; "downsample.0" / ".1" ->
+        # "downsample_conv" / "downsample_bn".
+        key = re.sub(r"layer(\d+)\.(\d+)", r"layer\1_\2", key)
+        key = key.replace("downsample.0", "downsample_conv").replace("downsample.1", "downsample_bn")
+        *path, leaf = key.split(".")
+        arr = value.detach().cpu().numpy()
+        if leaf == "weight" and arr.ndim == 4:  # conv (O, I, kh, kw) -> (kh, kw, I, O)
+            put(params, path + ["kernel"], arr.transpose(2, 3, 1, 0))
+        elif leaf == "weight" and arr.ndim == 2:  # dense (O, I) -> (I, O)
+            put(params, path + ["kernel"], arr.T)
+        elif leaf == "weight":  # batch norm
+            put(params, path + ["scale"], arr)
+        elif leaf == "bias":
+            put(params, path + ["bias"], arr)
+        elif leaf == "running_mean":
+            put(stats, path + ["mean"], arr)
+        elif leaf == "running_var":
+            put(stats, path + ["var"], arr)
+        else:
+            raise KeyError(f"Unhandled torch key: {key}")
+    return {"params": params, "batch_stats": stats}
 
 
 def torch_state_dict(blob: Mapping[str, Any]) -> dict[str, torch.Tensor]:

@@ -48,8 +48,13 @@ half, lower half — each with its own head.
   each folded weight is rounded once, and is redone whenever a master or a
   statistic changes (an optimizer step, a train-mode forward).
 
-The JAX package's space-to-depth stem is an exact TPU rewrite of the 7x7
-conv and is not ported.
+* ``stem_s2d`` is accepted for interface parity with the JAX package and
+  changes nothing: its space-to-depth stem is an exact TPU rewrite of the
+  7x7/2 conv (JAX's ``None`` turns it on only on a TPU), so the canonical
+  conv computes the same function.
+* ``act_store`` is accepted only as ``None``: the JAX package's
+  block-boundary storage experiment (``docs/train_profile.md``) is not
+  ported, and any other value raises.
 """
 
 from __future__ import annotations
@@ -409,8 +414,13 @@ class SSGResNet(SSGHeads):
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), num_features: int = 0,
                  dropout: float = 0.0, num_classes: int = 0, num_parts: int = 3,
                  norm: bool = True, last_stride: int = 2, dtype: torch.dtype = torch.float32,
-                 fused_eval: bool = False, block: type = Bottleneck):
+                 fused_eval: bool = False, block: type = Bottleneck,
+                 stem_s2d: bool | None = None, act_store: torch.dtype | None = None):
         super().__init__()
+        if act_store is not None:
+            raise NotImplementedError(
+                f"act_store={act_store} is not ported: the JAX package's block-boundary "
+                "storage experiment (docs/train_profile.md) is rejected there and unused")
         self.backbone = ResNetBackbone(stage_sizes, last_stride, fused_eval, block)
         self._add_heads(self.backbone.out_channels, num_features, dropout, num_classes,
                         num_parts, norm, dtype)

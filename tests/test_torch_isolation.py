@@ -10,8 +10,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "ssg_tpu")
-SOURCES = sorted((ROOT / "ssg_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
-    (ROOT / "scripts").glob("torch_*.py"))
+SOURCES = sorted((ROOT / "ssg_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "bench_torch.py"] + sorted((ROOT / "scripts").glob("torch_*.py"))
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -40,7 +40,8 @@ def test_import_loads_no_jax():
             "ssg_tpu_torch.data.prepare, ssg_tpu_torch.data.native_loader, "
             "ssg_tpu_torch.models.inception, ssg_tpu_torch.metric_learning, "
             "ssg_tpu_torch.dist_metric, ssg_tpu_torch.feature_extraction, "
-            "ssg_tpu_torch.utils.profiling, ssg_tpu_torch.utils.traceview; "
+            "ssg_tpu_torch.utils.profiling, ssg_tpu_torch.utils.traceview, ssg_tpu_torch.entry, "
+            "ssg_tpu_torch.data.synthetic_device, bench_torch; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ssg_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

@@ -186,3 +186,131 @@ def test_classifier_heads_match_jax(rng, train):
         dropped = drop.train(train)(torch.from_numpy(x))
     torch.testing.assert_close(dropped["embeddings"], ours["embeddings"], rtol=0, atol=0)
     assert torch.equal(dropped["logits"], ours["logits"]) != train
+
+
+# ---- stem_s2d and act_store (interface parity), the conversions, the
+# JAX-named train transforms ------------------------------------------------
+
+def test_stem_s2d_matches_jax_s2d_stem(rng):
+    """With ``stem_s2d=True`` the port's stem (the canonical conv) equals
+    JAX's ``stem_conv_apply(s2d=True)`` on the same (64, 3, 7, 7) master at
+    64x32, and at an odd size, where JAX takes the canonical conv too.
+    Tolerances as tests/test_models.py's."""
+    from ssg_tpu.models.resnet import stem_conv_apply as jax_stem
+
+    kernel = (rng.normal(size=(7, 7, 3, 64)) / np.sqrt(147)).astype(np.float32)  # HWIO
+    stem = models.create("resnet50", stage_sizes=(1, 1), stem_s2d=True).backbone.conv1
+    with torch.no_grad():
+        stem.weight.copy_(torch.from_numpy(kernel.transpose(3, 2, 0, 1).copy()))
+    for shape in ((2, 64, 32, 3), (1, 31, 17, 3)):
+        x = rng.normal(size=shape).astype(np.float32)
+        with torch.no_grad():
+            ours = stem(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+        ref = np.asarray(jax_stem(jnp.asarray(x), jnp.asarray(kernel), jnp.float32,
+                                  jax.lax.Precision.HIGHEST, s2d=True))
+        assert ours.shape == ref.shape
+        np.testing.assert_allclose(ours, ref, atol=2e-4, rtol=1e-4)
+
+
+def test_stem_s2d_model_matches_jax_and_keeps_fp32_heads(rng):
+    x, fm, variables, tm = _pair(rng, (1, 1), 0, batch=2)
+    fs = jax_models.SSGResNet(stage_sizes=(1, 1), num_features=0, num_parts=3, stem_s2d=True,
+                              dtype=jnp.float32, precision=jax.lax.Precision.HIGHEST)
+    ref = np.asarray(fs.apply(variables, jnp.asarray(x), train=False)["embeddings"])
+    ts = models.create("resnet50", stage_sizes=(1, 1), num_features=0, num_parts=3,
+                       stem_s2d=True).eval()
+    ts.load_state_dict(tm.state_dict())  # the same canonical parameter
+    with torch.no_grad():
+        ours = ts(torch.from_numpy(x))["embeddings"].numpy()
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-5)
+    # bf16 backbone: the stem computes in bf16, the heads stay fp32, and the
+    # flag changes no value (at 128x64: the oneDNN bf16 gotcha of
+    # test_model_resnet50_fp32_and_bf16).
+    x2 = torch.from_numpy(rng.normal(size=(2, 128, 64, 3)).astype(np.float32))
+    outs = []
+    for s2d in (None, True):
+        tb = models.create("resnet50", stage_sizes=(1, 1), num_features=0, num_parts=3,
+                           dtype=torch.bfloat16, stem_s2d=s2d).eval()
+        tb.load_state_dict(tm.state_dict())
+        seen = []
+        tb.backbone.conv1.register_forward_hook(lambda m, a, o: seen.append(o.dtype))
+        with torch.no_grad():
+            outs.append(tb(x2)["embeddings"])
+        assert seen == [torch.bfloat16] and outs[-1].dtype == torch.float32
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("arch", ["resnet18", "resnet50"])
+def test_act_store_is_refused(arch):
+    """``act_store`` is not ported: ``None`` builds the model, a dtype
+    raises, naming the option, rather than building something else."""
+    models.create(arch, stage_sizes=(1, 1), act_store=None)
+    with pytest.raises(NotImplementedError, match="act_store"):
+        models.create(arch, stage_sizes=(1, 1), act_store=torch.float8_e4m3fn)
+
+
+def test_to_jax_variables_is_torch_to_flax_and_inverts_from_jax_variables(rng):
+    from ssg_tpu.models.convert import flax_to_torch, torch_to_flax
+
+    from ssg_tpu_torch.models.convert import to_jax_variables
+
+    kw = dict(stage_sizes=(1, 1), num_features=16, num_parts=3, num_classes=7)
+    x = rng.normal(size=(2, 64, 32, 3)).astype(np.float32)
+    variables = _randomized_jax_variables(jax_models.SSGResNet(**kw), x, rng)
+    tm = models.create("resnet50", **kw)
+    tm.load_state_dict(from_jax_variables(variables))
+    sd = tm.state_dict()
+
+    ours, ref = to_jax_variables(sd), torch_to_flax(sd)
+    flat_ours = jax.tree_util.tree_flatten_with_path(ours)[0]
+    flat_ref = jax.tree_util.tree_flatten_with_path(ref)[0]
+    assert [p for p, _ in flat_ours] == [p for p, _ in flat_ref]
+    for (path, a), (_, b) in zip(flat_ours, flat_ref):
+        assert a.dtype == b.dtype and np.array_equal(a, b), path
+    # ... the variables the model was loaded from, back again.
+    jax.tree.map(np.testing.assert_array_equal, ours, variables)
+
+    back, ref_back = from_jax_variables(variables), flax_to_torch(variables)
+    assert set(back) - set(ref_back) == {k for k in back if k.endswith("num_batches_tracked")}
+    for k, arr in ref_back.items():
+        np.testing.assert_array_equal(back[k].numpy(), arr)
+    rt = from_jax_variables(to_jax_variables(sd))
+    assert rt.keys() == sd.keys() and all(torch.equal(rt[k], sd[k]) for k in sd)
+
+
+def test_jax_named_train_transforms_compose_draw_crops_and_crop_flip(rng):
+    """``train_transform``, ``random_sized_rect_crop`` and
+    ``random_horizontal_flip`` equal their ``draw_crops`` / ``crop_flip``
+    compositions on the same generator, and ``train_transform`` equals the
+    JAX package's arithmetic on the drawn boxes and flips."""
+    u8 = torch.from_numpy(rng.integers(0, 256, size=(5, 48, 24, 3), dtype=np.uint8))
+
+    def gen():
+        return torch.Generator().manual_seed(3)
+
+    boxes, flips = transforms.draw_crops(gen(), 5, 48, 24)
+    want = transforms.normalize_float(transforms.crop_flip(u8, boxes, flips, 64, 32),
+                                      torch.float32)
+    got = transforms.train_transform(gen(), u8, 64, 32)
+    assert torch.equal(got, want) and got.shape == (5, 64, 32, 3)
+    assert transforms.train_transform(gen(), u8, 64, 32, dtype=torch.bfloat16).dtype == \
+        torch.bfloat16
+
+    no_flip = torch.zeros(5, dtype=torch.bool)
+    assert torch.equal(transforms.random_sized_rect_crop(gen(), u8, 64, 32),
+                       transforms.crop_flip(u8, boxes, no_flip, 64, 32))
+
+    whole = torch.tensor([[0.0, 0.0, 48.0, 24.0]]).repeat(5, 1)
+    assert torch.equal(transforms.random_horizontal_flip(gen(), u8.float()),
+                       transforms.crop_flip(u8, whole, flips, 48, 24))
+
+    # JAX's crop (scale_and_translate on each box), flip and normalisation.
+    ref = []
+    for img, (y0, x0, ch, cw), flip in zip(u8.numpy(), boxes.numpy(), flips.numpy()):
+        r = jax.image.scale_and_translate(
+            jnp.asarray(img, jnp.float32), (64, 32, 3), (0, 1),
+            jnp.stack([64 / jnp.float32(ch), 32 / jnp.float32(cw)]),
+            jnp.stack([-jnp.float32(y0) * 64 / ch, -jnp.float32(x0) * 32 / cw]), "bilinear")
+        ref.append(r[:, ::-1] if flip else r)
+    ref = (jnp.stack(ref) / 255.0 - jax_transforms.IMAGENET_MEAN) / jax_transforms.IMAGENET_STD
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=2e-5)
