@@ -245,10 +245,14 @@ STAGES = (("layer1", 3, 1), ("layer2", 4, 2), ("layer3", 6, 2), ("layer4", 3, 2)
 IDENTITY = (("layer1", 64, 32, 256, 64, 2), ("layer2", 32, 16, 512, 128, 3),
             ("layer3", 16, 8, 1024, 256, 5), ("layer4", 8, 4, 2048, 512, 2))
 # The bottleneck kernel's times at the path shapes as PERF.md records them
-# for this version of it (H100 80GB HBM3, 700 W): one identity block a
-# layer; a batch's 12 identity blocks and four stages.
+# for its cp.async-ring design (H100 80GB HBM3, 700 W): one identity block a
+# layer; a batch's 12 identity blocks and four stages; each stage's first
+# (downsample) block and their sum, the ring's medians in the
+# scripts/torch_bottleneck_ab.py call whose table PERF.md section 6 gives.
 RECORDED_BLOCK_MS = {"layer1": 0.623, "layer2": 0.413, "layer3": 0.376, "layer4": 0.667}
-RECORDED_BATCH_MS = {"fused_bottleneck": 5.701, "fused_bottleneck_stage": 10.217}
+RECORDED_DOWNSAMPLE_MS = {"layer1": 0.4821, "layer2": 1.1412, "layer3": 1.0491, "layer4": 1.7722}
+RECORDED_BATCH_MS = {"fused_bottleneck": 5.701, "fused_bottleneck_stage": 10.217,
+                     "downsample blocks": 4.4445}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -532,13 +536,14 @@ def time_blocks(name: str, x, blocks, stride: int, kernel_fn, plain_fn, counter,
 
 
 def check_blocks_at_path_shapes(model, fused, batch) -> tuple[dict, dict]:
-    """The bottleneck kernel on each stage's second (identity) block, and the
-    stage op on each whole stage, at batch 128 on activations captured from
-    the unfused path model, with the fused-eval model's folded weights.
-    Returns the two kernels' entries, summed over the path: the 12 identity
-    blocks of one batch for the bottleneck, the four stages for the stage op."""
+    """The bottleneck kernel on each stage's second (identity) block, on its
+    first (downsample) block alone, and the stage op on each whole stage, at
+    batch 128 on activations captured from the unfused path model, with the
+    fused-eval model's folded weights. Returns the two kernels' entries,
+    summed over the path: the 12 identity blocks of one batch for the
+    bottleneck, the four stages for the stage op."""
     inputs = capture_stage_inputs(model, batch)
-    per_block, per_stage = [], []
+    per_block, per_stage, per_downsample = [], [], []
     for name, depth, stride in STAGES:
         layer = getattr(fused.backbone, name)
         x = inputs[(name, 1)]
@@ -552,6 +557,12 @@ def check_blocks_at_path_shapes(model, fused, batch) -> tuple[dict, dict]:
         cm = blk[0].shape[1]
         print(f"  {name} tiles: identity {bottleneck.plan(*x.shape[:3], cm)}, first block "
               f"{bottleneck.plan(*x0.shape[:3], cm, stride, downsample=True)}")
+        first = blocks[:1]
+        r = time_blocks(f"{name} downsample block", x0, first, stride,
+                        lambda: fused_bottleneck_stage(x0, first, stride),
+                        lambda: stage_ref(x0, first, stride),
+                        lambda: bottleneck_stage.launches, RECORDED_DOWNSAMPLE_MS[name])
+        per_downsample.append((1, r))
         r = time_blocks(f"{name} stage", x0, blocks, stride,
                         lambda: fused_bottleneck_stage(x0, blocks, stride),
                         lambda: stage_ref(x0, blocks, stride),
@@ -569,7 +580,8 @@ def check_blocks_at_path_shapes(model, fused, batch) -> tuple[dict, dict]:
                    bound_by=max(share, key=share.get))
         return out
 
-    rows = {"fused_bottleneck": total(per_block), "fused_bottleneck_stage": total(per_stage)}
+    rows = {"fused_bottleneck": total(per_block), "fused_bottleneck_stage": total(per_stage),
+            "downsample blocks": total(per_downsample)}
     for op, r in rows.items():
         print(f"{op} per batch: kernel {r['ms']:.3f} ms (recorded: {RECORDED_BATCH_MS[op]:.3f}), eager "
               f"cuDNN {r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms, "

@@ -15,10 +15,13 @@ plain version and times them in turns: current, baseline, baseline, current,
 for ``--rounds`` rounds. It prints the median device ms of each, then the
 card's name and power limit.
 
-* ``bottleneck`` (the default; the baseline has the same C interface): one
-  identity block at each ResNet-50 path shape (batch 128, 256x128 input;
-  random bf16 activations and folded weights from seed 0), per layer and for
-  the 12 identity blocks of a batch (2, 3, 5 and 2 in layers 1-4).
+* ``bottleneck`` (the default; the baseline has the same C interface): at
+  each ResNet-50 path shape (batch 128, 256x128 input; random bf16
+  activations and folded weights from seed 0), per layer, one identity
+  block and the stage's first (downsample) block (stride 1 in layer1, 2 in
+  layers 2-4), then the 12 identity blocks (2, 3, 5 and 2 in layers 1-4)
+  and the 4 downsample blocks of a batch. Each line also gives each
+  version's host time a launch (the C call, tensor maps included).
 * ``l1`` and ``distance``: the path call, a symmetric one (N = 3368; the L1
   on a V-like sparse row-stochastic matrix against itself, the distance on
   unit-norm rows of width 2048 against themselves), then the general call at
@@ -35,6 +38,7 @@ import ctypes
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -43,21 +47,29 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from ssg_tpu_torch.ops import _build, bottleneck  # noqa: E402
-from ssg_tpu_torch.ops.bottleneck import bf16_ulp_error, bottleneck_ref  # noqa: E402
+from ssg_tpu_torch.ops.bottleneck import bf16_ulp_error, block_ref  # noqa: E402
 from ssg_tpu_torch.ops.distance import pairwise_distance_ref  # noqa: E402
 from ssg_tpu_torch.ops.l1 import l1_distance_ref  # noqa: E402
 
 # (name, H, W, C, Cm, identity blocks a batch) at batch 128.
 LAYERS = (("layer1", 64, 32, 256, 64, 2), ("layer2", 32, 16, 512, 128, 3),
           ("layer3", 16, 8, 1024, 256, 5), ("layer4", 8, 4, 2048, 512, 2))
+# Each stage's first block at batch 128: (name, H, W, C, Cm, Cout, stride).
+DOWNSAMPLE = (("layer1", 64, 32, 64, 64, 256, 1), ("layer2", 64, 32, 256, 128, 512, 2),
+              ("layer3", 32, 16, 512, 256, 1024, 2), ("layer4", 16, 8, 1024, 512, 2048, 2))
 BATCH = 128
 BF16_ULPS = 4  # kernel against the plain version, as in chip_smoke.py
 L1_TOL = DIST_TOL = 1e-5  # of the row-sum / |x|^2 + |y|^2 scale, as in chip_smoke.py
 N = 3368  # the path's points a group
 
 
-def block(gen: np.random.Generator, c: int, cm: int, dev):
-    shapes = [(c, cm), (cm,), (3, 3, cm, cm), (cm,), (cm, c), (c,)]
+def block(gen: np.random.Generator, c: int, cm: int, dev, cout: int | None = None):
+    """Folded-block weights, LeCun-scaled bf16 and small fp32 biases; with
+    ``cout``, a downsample block (``wd``, ``bd`` last)."""
+    ds = cout is not None
+    cout = c if cout is None else cout
+    shapes = [(c, cm), (cm,), (3, 3, cm, cm), (cm,), (cm, cout), (cout,)]
+    shapes += [(c, cout), (cout,)] if ds else []
     out = []
     for shape in shapes:
         a = gen.normal(size=shape).astype(np.float32)
@@ -68,60 +80,83 @@ def block(gen: np.random.Generator, c: int, cm: int, dev):
     return out
 
 
-def median_ms(fns: dict, rounds: int, reps: int) -> dict:
-    """Median device ms of each callable, timed in turns (a, b, b, a) per round."""
-    def timed(fn):
+def median_ms(fns: dict, rounds: int, reps: int, host: dict | None = None) -> dict:
+    """Median device ms of each callable, timed in turns (a, b, b, a) per
+    round; with ``host``, also each one's median host ms a call (the enqueue
+    loop's own clock)."""
+    def timed(k):
+        fn = fns[k]
         fn()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
+        host_s = time.perf_counter() - t0
         end.record()
         end.synchronize()
+        if host is not None:
+            host.setdefault(k, []).append(host_s * 1e3 / reps)
         return start.elapsed_time(end) / reps
 
     names = list(fns)
     times = {k: [] for k in names}
     for _ in range(rounds):
         for k in names + names[::-1]:
-            times[k].append(timed(fns[k]))
+            times[k].append(timed(k))
+    if host is not None:
+        for k in names:
+            host[k] = statistics.median(host[k])
     return {k: statistics.median(v) for k, v in times.items()}
 
 
 def ab_bottleneck(libs: dict, dev, rounds: int, reps: int) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     gen = np.random.default_rng(0)
-    totals = dict.fromkeys(libs, 0.0)
-    for name, h, w, c, cm, count in LAYERS:
-        x = torch.from_numpy(np.abs(gen.normal(size=(BATCH, h, w, c))).astype(np.float32))
+    cases = [(f"{name} identity block", (BATCH, h, w, c), c, cm, c, 1, count)
+             for name, h, w, c, cm, count in LAYERS]
+    cases += [(f"{name} downsample block", (BATCH, h, w, c), c, cm, cout, s, 1)
+              for name, h, w, c, cm, cout, s in DOWNSAMPLE]
+    totals = {kind: dict.fromkeys(libs, 0.0) for kind in ("identity", "downsample")}
+    for label, shape, c, cm, cout, stride, count in cases:
+        ds = "downsample" in label
+        x = torch.from_numpy(np.abs(gen.normal(size=shape)).astype(np.float32))
         x = x.to(dev, torch.bfloat16)
-        ws = block(gen, c, cm, dev)
-        ref = bottleneck_ref(x, *ws)
-        out = torch.empty_like(x)
+        ws = block(gen, c, cm, dev, cout if ds else None)
+        ref = block_ref(x, *ws, stride=stride)
+        out = torch.empty_like(ref)
+        b, h, w = shape[:3]
 
         def run(lib):
+            ptrs = [t.data_ptr() for t in ws] + ([] if ds else [None, None])
+
             def go():
-                err = lib.ssg_bottleneck(x.data_ptr(), *(t.data_ptr() for t in ws), None, None,
-                                         out.data_ptr(), BATCH, h, w, c, cm, c, 1, stream)
+                err = lib.ssg_bottleneck(x.data_ptr(), *ptrs, out.data_ptr(), b, h, w, c, cm,
+                                         cout, stride, stream)
                 if err:
                     raise RuntimeError(f"ssg_bottleneck: CUDA error {err}")
             return go
 
         for k, lib in libs.items():
+            out.zero_()
             run(lib)()
             torch.cuda.synchronize()
             ulps = bf16_ulp_error(out, ref)
             if ulps > BF16_ULPS:
-                raise RuntimeError(f"{name} ({k}): {ulps:.0f} ulps from the plain version")
-        med = median_ms({k: run(lib) for k, lib in libs.items()}, rounds, reps)
-        for k in totals:
-            totals[k] += count * med[k]
-        print(f"{name} identity block ({BATCH},{h},{w},{c})/Cm {cm}: " +
-              ", ".join(f"{k} {v:.4f} ms" for k, v in med.items()) +
+                raise RuntimeError(f"{label} ({k}): {ulps:.0f} ulps from the plain version")
+        host = {}
+        med = median_ms({k: run(lib) for k, lib in libs.items()}, rounds, reps, host)
+        kind = "downsample" if ds else "identity"
+        for k in libs:
+            totals[kind][k] += count * med[k]
+        print(f"{label} {shape}/Cm {cm}/Cout {cout}/stride {stride}: " +
+              ", ".join(f"{k} {v:.4f} ms (host {host[k] * 1e3:.1f} us)" for k, v in med.items()) +
               f"; current / baseline {med['current'] / med['baseline']:.3f}")
-    print("12 identity blocks a batch: " + ", ".join(f"{k} {v:.4f} ms" for k, v in totals.items()))
+    for kind, n in (("identity", 12), ("downsample", 4)):
+        print(f"{n} {kind} blocks a batch: " +
+              ", ".join(f"{k} {v:.4f} ms" for k, v in totals[kind].items()))
 
 
 def bind_pairwise(kernel: str, source: Path):

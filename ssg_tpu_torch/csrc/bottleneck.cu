@@ -28,24 +28,62 @@
 // 10 us in layer1..layer4 (268 / 134 / 67 / 34 MB at 3.35 TB/s), so layer1
 // is bound by bytes and layers 3-4 by operations.
 //
-// Design (right and simple first; wgmma and TMA are later work). A block of
-// 256 threads owns TR x TC output pixels of one image (at most 128). It
+// Design. A block owns TR x TC output pixels of one image (at most 128). It
 //   1. computes y1 on the (TR-1)s+3 x (TC-1)s+3 input pixels under the 3x3
 //      window into shared memory, zero outside the image (the conv padding);
 //   2. computes y2 for its pixels into shared memory: an implicit GEMM whose
 //      A rows are gathered from y1 with one ldmatrix row address per lane;
 //   3. computes out = relu(y2 @ w3 (+ xs @ wd) + bias (+ x)) and stores it.
-// Each product is mma.sync m16n8k16 (bf16 in, fp32 accumulators), 8 warps
-// over a GEMM tile of 128 rows x 64 columns (64 x 128 when the tile has few
-// rows). Weights are streamed from L2 in 32-deep K chunks through a cp.async
-// ring of 2-4 slots (up to three chunks in flight while one is used), since
-// layer4's w2 alone is 4.7 MB; x chunks for the 1x1 products go through the
-// same ring. Shared addresses are computed per row once a pass, and the 3x3
-// taps through a small table, so the K loop holds loads and mma only.
-// Ragged H, W, C, Cm and Cout (multiples of 8) are masked here: K padding
-// loads zeros, which is exact.
+// Each product is mma.sync m16n8k16 (bf16 in, fp32 accumulators), 8 consumer
+// warps over a GEMM tile of 128 rows x 64 columns (64 x 128 when the tile
+// has few rows). A ninth warp only produces: one of its lanes issues every
+// operand copy of the block, in the consumers' order, as a tensor-map (TMA)
+// box, and runs ahead across passes and phases (nothing it loads depends on
+// y1 or y2). A chunk is 64 deep in K:
+//   - weights: w1 (C, Cm), w2 as (9 Cm, Cm), w3 (Cm, Cout), wd (C, Cout),
+//     row-major, one or two boxes of 64 K rows x 64 N columns (128 B a row)
+//     into a slot of the B ring (2-8 slots);
+//   - x for the first 1x1 product: the halo window in bands of whole rows,
+//     one box of 64 channels x TCin x BR pixels of the (B, H, W, C) tensor
+//     map (rows and columns outside the image read as zeros), into a slot of
+//     the A ring (2-3 slots); for the downsample product, 64 channels x TC x
+//     TR pixels with element strides (1, s, s, 1).
+// A chunk lands on its B slot's "full" mbarrier (the producer's
+// arrive.expect_tx counts every box's whole bytes, zero fill included);
+// each consumer warp releases the slots on their "empty" mbarriers, so no
+// block barrier sits inside a K loop (the consumers meet on a named barrier
+// between phases). Every box lands 128B-swizzled (16-byte piece j of a
+// 128-byte row r at j ^ (r mod 8), slots 1024-byte aligned): the consumers'
+// ldmatrix rows fall on distinct banks with no padding. Rows past K and
+// columns past N are the box's zero fill, which is exact. y1 and y2 keep
+// padded rows, written by the consumers' epilogues, and the 3x3 taps go
+// through a small table; y1 is zeroed outside the image by the epilogue (a
+// zero-filled pixel gives relu(b1), not 0). A wait on an mbarrier traps
+// after ~10 s, so a wrong byte count fails the launch instead of hanging.
+//
+// The two instances share the set-up and phases 1-2 (y1_y2) and differ in
+// the tile walk and phase 3. Both run two blocks an SM where shared memory
+// allows (nine warps twice over: 96 registers a thread, a little spilled),
+// else one. The identity kernel (12 blocks a batch) runs one tile a block
+// and releases a chunk's slots after the chunk's products (its y2 shares
+// the A ring, and at 96 registers more live state spilled more and cost
+// 6-16 %). The downsample kernel walks over its tiles (the producer fetches
+// the next tile during this tile's epilogue) and releases a chunk's slots
+// before its last products; only layer1's fits two blocks an SM.
+// Against the design before it (a cp.async ring of 32-deep chunks staged
+// by all 256 threads, a block barrier each) on an H100 at the path shapes,
+// in turns (scripts/torch_bottleneck_ab.py), the identity block takes
+// 0.86 / 0.80 / 0.79 / 0.57 of its time in layers 1-4 and the downsample
+// block 0.82 / 0.53 / 0.56 / 0.48, so both instances keep this design.
+// What bounds them is inferred from those calls (PERF.md), not profiled:
+// layer1's 2048 short tiles, latency (a second resident block hides it: the
+// downsample block at one block an SM took the ring's time); layers 2-3,
+// the consumers' fragment loads and mma.sync products at these warp tiles;
+// layer4, the weight stream (8.9 MB a block, the same boxes for all 128
+// blocks), not its ring's depth (4 and 7 slots took the same time).
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -53,65 +91,141 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int THREADS = 256;
-constexpr int KC = 32;            // K per staged chunk
-constexpr int MAX_STAGES = 4;     // cp.async ring slots: up to three chunks in flight
+constexpr int THREADS = 256;      // consumer threads of a bf16 block; an fp32 kernel's block
+constexpr int WARPS = THREADS / 32;
+constexpr int BLOCK_THREADS = THREADS + 32;  // + the producer warp
+constexpr int KC = 64;            // K per ring chunk: one box row per K row
+constexpr int BOX_N = 64;         // weight columns of a box: 128 B a row
+constexpr int BOX_BYTES = KC * BOX_N * 2;
+constexpr int ROW_BYTES = 128;    // a box row: 64 bf16 (K rows of weights, pixels of x)
+constexpr int MAX_B_STAGES = 8;   // weight ring slots
+constexpr int MAX_A_STAGES = 3;   // x ring slots
 constexpr int MAX_STRIPS = 2;     // 16-row strips a warp holds per pass
-constexpr int PAD = 8;            // bf16 of row padding: ldmatrix rows on distinct banks
-constexpr int LDA = KC + PAD;     // staged A chunk row stride
-constexpr int NC_MAX = 128;
-constexpr int LDB_MAX = NC_MAX + PAD;
+constexpr int PAD = 8;            // bf16 of y1 / y2 row padding: ldmatrix rows on distinct banks
 constexpr int MT_MAX = 128;       // rows of one pass
 constexpr int P_MAX = 128;        // output pixels a block owns
-constexpr int A_PIECES = KC / 8;  // 16-byte pieces in a staged A row
-constexpr int A_ROWS = MT_MAX * A_PIECES / THREADS;  // staged A rows a thread copies
+constexpr int TCIN_MAX = 128;     // halo columns: a band of whole halo rows fits one pass
 constexpr int SMEM_LIMIT = 232448;      // one block's dynamic shared memory
 constexpr int SMEM_TWO_PER_SM = 115712;  // (228 KB - 2 x 1 KB reserved) / 2
+constexpr int ALIGN = 1024;       // 128B-swizzled boxes repeat every 1024 bytes
 
 __host__ __device__ constexpr int round16(int v) { return (v + 15) & ~15; }
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+// GEMM columns a pass covers: the warp grid by the pass's rows, and whether
+// the launch lets short passes take the wide grid (16 KB weight slots).
+__host__ __device__ constexpr int pass_nc(int rows, bool wide) {
+  return rows <= 64 && wide ? 128 : 64;
+}
+
+// Shared-memory layout of a launch, from a 1024-byte aligned base: the B
+// ring (sb slots of b_slot bytes: weight boxes), the A ring (sa slots of
+// a_slot: x boxes; an identity block's y2 takes its place after phase 1),
+// y2 (downsample), y1, then 8 zeros, the mbarriers (full and empty a B
+// slot, empty an A slot: a chunk's x box lands on its B slot's full
+// barrier) and the 3x3 tap table.
+struct Layout {
+  int TRin, TCin, BR;  // halo window; halo rows of a phase-1 band
+  int rows1;           // GEMM rows of a full band
+  bool wide;
+  int sb, sa, b_slot, a_slot, off_a, off_y2, off_y1, off_misc, bytes;
+};
+
+Layout layout(int TR, int TC, int S, bool ds, int Cm, int sb, int sa, bool wide) {
+  Layout t;
+  t.TRin = (TR - 1) * S + 3;
+  t.TCin = (TC - 1) * S + 3;
+  const int bands = cdiv(t.TRin, MT_MAX / t.TCin < t.TRin ? MT_MAX / t.TCin : t.TRin);
+  t.BR = cdiv(t.TRin, bands);
+  t.rows1 = round16(t.BR * t.TCin);
+  t.wide = wide;
+  t.sb = sb;
+  t.sa = sa;
+  const int Pp = round16(TR * TC);
+  const int nc1 = pass_nc(t.rows1, wide), nc2 = pass_nc(Pp, wide);
+  t.b_slot = (nc1 > nc2 ? nc1 : nc2) * KC * 2;
+  t.a_slot = (ds && Pp > t.rows1 ? Pp : t.rows1) * ROW_BYTES;
+  const int y1 = round16(t.TRin * t.TCin) * (Cm + PAD) * 2;
+  const int y2 = Pp * (Cm + PAD) * 2;
+  t.off_a = sb * t.b_slot;
+  if (ds) {
+    t.off_y2 = t.off_a + sa * t.a_slot;
+    t.off_y1 = t.off_y2 + y2;
+  } else {
+    t.off_y2 = t.off_a;
+    t.off_y1 = t.off_a + (sa * t.a_slot > y2 ? sa * t.a_slot : y2);
+  }
+  t.off_misc = t.off_y1 + y1;
+  t.bytes = t.off_misc + 16 + 8 * (2 * sb + sa) + 9 * Cm / 8 * 4 + ALIGN;  // + the base's alignment
+  return t;
+}
 
 struct Params {
+  CUtensorMap map_x;   // x (B, H, W, C): phase-1 boxes of 64 x TCin x BR x 1
+  CUtensorMap map_xs;  // x, strided: 64 x TC x TR pixels (downsample only)
+  CUtensorMap map_w1, map_w2, map_w3, map_wd;  // 64 x 64 boxes of (K, N)
   const bf16* x;
-  const bf16* w1;
   const float* b1;
-  const bf16* w2;
   const float* b2;
-  const bf16* w3;
   const float* b3;
-  const bf16* wd;
   const float* bd;
   bf16* out;
   int B, H, W, C, Cm, Cout, Ho, Wo;
   int TR, TC, tiles_r, tiles_c;
-  int stages;  // cp.async ring slots, 2..MAX_STAGES
+  Layout L;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared; zero-filled when !valid (src is then not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
+__device__ __forceinline__ void bar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(b)), "r"(count) : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void expect_tx(uint64_t* b, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(b)), "r"(bytes) : "memory");
 }
-// Waits until at most stages - 2 of this thread's copy groups are pending.
-__device__ __forceinline__ void cp_async_wait_ring(int stages) {
-  if (stages >= 4) asm volatile("cp.async.wait_group 2;\n" ::);
-  else if (stages == 3) asm volatile("cp.async.wait_group 1;\n" ::);
-  else asm volatile("cp.async.wait_group 0;\n" ::);
+__device__ __forceinline__ void arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(b)) : "memory");
+}
+// Waits for the phase of parity `parity` to complete; traps after ~10 s, so
+// a copy that never lands (a wrong byte count) fails the launch.
+__device__ __forceinline__ void wait_guarded(uint64_t* b, uint32_t parity) {
+  uint32_t done = 0;
+  uint64_t t0 = 0, t;
+  for (int spins = 0; !done; ++spins) {
+    asm volatile("{.reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;"
+                 " selp.u32 %0, 1, 0, p;}\n"
+                 : "=r"(done) : "r"(smem_u32(b)), "r"(parity) : "memory");
+    if (!done && (spins & 1023) == 1023) {
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+      if (!t0) t0 = t;
+      else if (t - t0 > 10000000000ull) __trap();
+    }
+  }
+}
+__device__ __forceinline__ void box2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                      uint64_t* b) {
+  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+               " [%0], [%1, {%2, %3}], [%4];\n"
+               :: "r"(smem_u32(dst)), "l"(map), "r"(c0), "r"(c1), "r"(smem_u32(b)) : "memory");
+}
+__device__ __forceinline__ void box4d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                      int c3, uint64_t* b) {
+  asm volatile("cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+               " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+               :: "r"(smem_u32(dst)), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(b))
+               : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
 }
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
 }
 __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -121,15 +235,19 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+// The consumers' barrier between phases (named barrier 1: the producer warp
+// is not in it).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(THREADS) : "memory");
+}
 
 // Warp grid over one pass: WC column groups of 32 output columns, 8 / WC row
 // groups; warp (wr, wc) holds strips wr and wr + WR. WC = 2 covers 128 rows
 // x 64 columns, WC = 4 covers 64 rows x 128 columns.
 template <int WC>
 struct Grid {
-  static constexpr int WR = 8 / WC;
+  static constexpr int WR = WARPS / WC;
   static constexpr int NC = 32 * WC;
-  static constexpr int LDB = NC + PAD;
 };
 
 using Acc = float[MAX_STRIPS][4][4];
@@ -143,24 +261,48 @@ __device__ __forceinline__ void zero_acc(Acc& acc) {
       for (int i = 0; i < 4; ++i) acc[s][t][i] = 0.f;
 }
 
-// acc[rows of this pass, n0 .. n0 + NC) += A[rows, 0..K) @ Bg[0..K, n0 ..).
-// Bg is (K, N) row-major bf16 in device memory, staged KC rows at a time
-// through the ring Bs of `stages` slots. issue_a(buf, kc) stages chunk kc of A
-// into ring slot buf (if A is staged). row_base(m) is the per-row part of
-// A's shared address, taken once per strip before the K loop; a_ptr(buf,
-// base, k) is the shared address of A[m, k .. k + 8) for k < K, a multiple
-// of 8. zero8 holds 8 zeros (A's K padding).
-template <int WC, class IssueA, class RowBase, class APtr>
-__device__ __forceinline__ void mma_pass(Acc& acc, int strips, int K, const bf16* __restrict__ Bg,
-                                         int N, int n0, bf16* Bs, const bf16* zero8, int stages,
-                                         IssueA issue_a, RowBase row_base, APtr a_ptr) {
+// Positions in the two rings: the slot of the next chunk, the parity of its
+// fill and the chunks so far. The producer and every consumer warp walk the
+// same chunk sequence.
+struct Pos {
+  int slot = 0;
+  uint32_t parity = 0;
+  int count = 0;
+  __device__ __forceinline__ void next(int stages) {
+    ++count;
+    if (++slot == stages) {
+      slot = 0;
+      parity ^= 1;
+    }
+  }
+};
+struct Ring {
+  uint64_t* full;     // a B slot's fill, its x box included
+  uint64_t* empty;    // a B slot released by every consumer warp
+  uint64_t* empty_a;  // an A slot released
+  int sb, sa;
+  Pos b, a;
+};
+
+// acc[rows of this pass, n0 .. n0 + NC) += A[rows, 0..K) @ B[0..K, n0 ..),
+// B's 64-deep chunks taken from the ring (slot s at Bs + s * b_slot, as one
+// or two swizzled 64 x 64 boxes; with A_BOX, A's from the A ring too). With
+// EARLY, a whole chunk's slots are released as soon as its last step has
+// read them, before that step's products (with A_BOX the step then holds
+// both strips' A fragments: more live registers); else after the chunk.
+// row_base(m) is the per-row part of A's shared address, taken once per
+// strip before the K loop; a_addr(a_slot, base, k) is the shared address of
+// A[m, k .. k + 8) for k < K, a multiple of 8; zero8 holds 8 zeros (A's K
+// padding).
+template <int WC, bool A_BOX, bool EARLY, class RowBase, class AAddr>
+__device__ __forceinline__ void mma_pass(Acc& acc, int strips, int K, Ring& ring, uint32_t Bs,
+                                         int b_slot, uint32_t zero8, RowBase row_base,
+                                         AAddr a_addr) {
   using G = Grid<WC>;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int wr = warp / WC;
   const int wc = warp % WC;
-  const int nk = (K + KC - 1) / KC;
 
   int base[MAX_STRIPS];
 #pragma unroll
@@ -168,62 +310,106 @@ __device__ __forceinline__ void mma_pass(Acc& acc, int strips, int K, const bf16
     const int strip = wr + G::WR * s;
     base[s] = strip < strips ? row_base(strip * 16 + (lane & 15)) : 0;
   }
-
-  auto issue = [&](int buf, int kc) {
-    constexpr int PIECES = G::NC / 8;  // 16-byte pieces in a staged B row
+  // This lane's ldmatrix.trans row of B in a chunk: K row ks * 16 + (lane &
+  // 15), 16-byte piece of column wc * 32 + np * 16 + (lane >> 4) * 8 of its
+  // box, swizzled by the row (lane & 7).
+  uint32_t b_off[2];
 #pragma unroll
-    for (int i = tid; i < KC * PIECES; i += THREADS) {
-      const int k = i / PIECES;
-      const int piece = i % PIECES;
-      const int gk = kc * KC + k;
-      const int gn = n0 + piece * 8;
-      const bool ok = gk < K && gn < N;
-      cp_async16(Bs + (buf * KC + k) * G::LDB + piece * 8,
-                 ok ? Bg + static_cast<int64_t>(gk) * N + gn : Bg, ok);
-    }
-    issue_a(buf, kc);
-  };
-
-  for (int st = 0; st < stages - 1; ++st) {
-    if (st < nk) issue(st, st);
-    cp_async_commit();
+  for (int np = 0; np < 2; ++np) {
+    const int col = wc * 32 + np * 16 + (lane >> 4) * 8;
+    b_off[np] = (col / BOX_N) * BOX_BYTES + (lane & 15) * ROW_BYTES +
+                ((((col % BOX_N) >> 3) ^ (lane & 7)) << 4);
   }
-  int buf = 0;                // slot of chunk kc
-  int next_buf = stages - 1;  // slot of chunk kc + stages - 1
-  for (int kc = 0; kc < nk; ++kc) {
-    cp_async_wait_ring(stages);  // chunk kc has landed
-    __syncthreads();             // ... for every thread, and slot kc - 1 is free
-    if (kc + stages - 1 < nk) issue(next_buf, kc + stages - 1);
-    cp_async_commit();
-    const bf16* bs = Bs + buf * KC * G::LDB;
+
+  // One 16-deep step of the chunk in B slot bs: B fragments for the warp's
+  // 32 columns, each strip's A fragment and its four products, calling
+  // `loaded()` once the step has read the ring (with EARLY and A_BOX, after
+  // both strips' A fragments: the step then holds them, more live
+  // registers). `tail`: the chunk ends inside K, so A columns past K read
+  // zeros.
+  auto step = [&](uint32_t bs, int k0, int ks, bool tail, auto loaded) {
+    uint32_t b[4][2];
 #pragma unroll
-    for (int ks = 0; ks < KC / 16; ++ks) {
-      if (kc * KC + ks * 16 >= K) break;
-      uint32_t b[4][2];
+    for (int np = 0; np < 2; ++np) {
+      uint32_t r[4];
+      ldsm_x4_t(r, bs + b_off[np] + ks * 16 * ROW_BYTES);
+      b[2 * np][0] = r[0];
+      b[2 * np][1] = r[1];
+      b[2 * np + 1][0] = r[2];
+      b[2 * np + 1][1] = r[3];
+    }
+    const int k = k0 + ks * 16 + (lane >> 4) * 8;
+    auto a_src = [&](int s) { return !tail || k < K ? a_addr(ring.a.slot, base[s], k) : zero8; };
+    if constexpr (EARLY && A_BOX) {
+      uint32_t a[MAX_STRIPS][4];
 #pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t r[4];
-        ldsm_x4_t(r, bs + (ks * 16 + (lane & 15)) * G::LDB + wc * 32 + np * 16 + (lane >> 4) * 8);
-        b[2 * np][0] = r[0];
-        b[2 * np][1] = r[1];
-        b[2 * np + 1][0] = r[2];
-        b[2 * np + 1][1] = r[3];
-      }
-      const int k = kc * KC + ks * 16 + (lane >> 4) * 8;
+      for (int s = 0; s < MAX_STRIPS; ++s)
+        if (wr + G::WR * s < strips) ldsm_x4(a[s], a_src(s));
+      loaded();
+#pragma unroll
+      for (int s = 0; s < MAX_STRIPS; ++s)
+        if (wr + G::WR * s < strips)
+#pragma unroll
+          for (int t = 0; t < 4; ++t) mma16816(acc[s][t], a[s], b[t][0], b[t][1]);
+    } else {
+      loaded();
 #pragma unroll
       for (int s = 0; s < MAX_STRIPS; ++s) {
         if (wr + G::WR * s < strips) {
           uint32_t a[4];
-          ldsm_x4(a, k < K ? a_ptr(buf, base[s], k) : zero8);
+          ldsm_x4(a, a_src(s));
 #pragma unroll
           for (int t = 0; t < 4; ++t) mma16816(acc[s][t], a, b[t][0], b[t][1]);
         }
       }
     }
-    buf = buf + 1 == stages ? 0 : buf + 1;
-    next_buf = next_buf + 1 == stages ? 0 : next_buf + 1;
+  };
+  // The warp's last read of the chunk's slots is done: release them.
+  auto release = [&]() {
+    __syncwarp();
+    if (lane == 0) {
+      arrive(ring.empty + ring.b.slot);
+      if (A_BOX) arrive(ring.empty_a + ring.a.slot);
+    }
+  };
+
+  for (int k0 = 0; k0 < K; k0 += KC) {
+    wait_guarded(ring.full + ring.b.slot, ring.b.parity);
+    const uint32_t bs = Bs + ring.b.slot * b_slot;
+    if (k0 + KC <= K) {
+      // A whole chunk: straight-line code, so the compiler can issue the
+      // later steps' fragment loads under the earlier steps' products.
+#pragma unroll
+      for (int ks = 0; ks < KC / 16; ++ks)
+        step(bs, k0, ks, false, [&] {
+          if (EARLY && ks == KC / 16 - 1) release();
+        });
+      if (!EARLY) release();
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < KC / 16; ++ks) {
+        if (k0 + ks * 16 >= K) break;
+        step(bs, k0, ks, true, [] {});
+      }
+      release();
+    }
+    ring.b.next(ring.sb);
+    if constexpr (A_BOX) ring.a.next(ring.sa);
   }
-  __syncthreads();  // the next pass's prologue refills the ring
+}
+
+// This thread's bias pairs of a pass: bias[n], bias[n + 1] for its four
+// columns n = n0 + wc * 32 + t * 8 + 2 * (lane & 3), t < 4 (0 past N). Read
+// before the pass's K loop, so the loads' latency hides behind the products.
+template <int WC>
+__device__ __forceinline__ void load_bias(float2 (&out)[4], const float* bias, int N, int n0) {
+  const int lane = threadIdx.x & 31;
+  const int wc = (threadIdx.x >> 5) % WC;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int n = n0 + wc * 32 + t * 8 + 2 * (lane & 3);
+    out[t] = n < N ? *reinterpret_cast<const float2*>(bias + n) : make_float2(0.f, 0.f);
+  }
 }
 
 // Calls f(s, t, h, m, n) for each accumulator pair this thread holds:
@@ -247,52 +433,14 @@ __device__ __forceinline__ void for_each_pair(int strips, int n0, F f) {
   }
 }
 
-// Hands each accumulator pair to epi(m, n, v(m, n), v(m, n + 1)).
-template <int WC, class Epi>
-__device__ __forceinline__ void epilogue(const Acc& acc, int strips, int n0, Epi epi) {
-  for_each_pair<WC>(strips, n0, [&](int s, int t, int h, int m, int n) {
-    epi(m, n, acc[s][t][2 * h], acc[s][t][2 * h + 1]);
-  });
-}
-
 __device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
 }
 
-// A staged from x: this thread copies piece (tid % A_PIECES) of rows
-// tid / A_PIECES + (THREADS / A_PIECES) j, j < A_ROWS, of each chunk; pix[j]
-// is that row's NHWC pixel, or -1 for a zero row. The copies land in ring
-// slot buf of As.
-struct StagedX {
-  bf16* As;
-  const bf16* x;
-  int C;
-  int64_t pix[A_ROWS];
-
-  template <class Pixel>
-  __device__ __forceinline__ StagedX(bf16* As_, const bf16* x_, int C_, int rows, Pixel pixel)
-      : As(As_), x(x_), C(C_) {
-#pragma unroll
-    for (int j = 0; j < A_ROWS; ++j) {
-      const int m = threadIdx.x / A_PIECES + (THREADS / A_PIECES) * j;
-      pix[j] = m < rows ? pixel(m) : -1;
-    }
-  }
-  __device__ __forceinline__ void operator()(int buf, int kc) const {
-    const int piece = threadIdx.x % A_PIECES;
-    const int k = kc * KC + piece * 8;
-#pragma unroll
-    for (int j = 0; j < A_ROWS; ++j) {
-      const int m = threadIdx.x / A_PIECES + (THREADS / A_PIECES) * j;
-      const bool ok = pix[j] >= 0 && k < C;
-      cp_async16(As + (buf * MT_MAX + m) * LDA + piece * 8, ok ? x + pix[j] * C + k : x, ok);
-    }
-  }
-};
-
-// One pass of a GEMM over `rows` rows, choosing the warp grid by row count.
-#define SSG_PASS(ROWS, ...)            \
-  if ((ROWS) <= 64) {                  \
+// One pass of a GEMM over `rows` rows, choosing the warp grid by row count
+// as pass_nc does.
+#define SSG_PASS(ROWS, WIDE, ...)      \
+  if ((ROWS) <= 64 && (WIDE)) {        \
     constexpr int WC = 4;              \
     __VA_ARGS__                        \
   } else {                             \
@@ -300,155 +448,296 @@ struct StagedX {
     __VA_ARGS__                        \
   }
 
+// The producer: every chunk of the block in the consumers' order. A chunk is
+// the weight boxes of K rows k0 .. k0 + 63 and columns n0 .. n0 + nc (those
+// that start inside N) into a B slot, plus, for a product with x, one box of
+// x at (k0, w, h, b) of `a_bytes` bytes (the whole box, its zero fill
+// included) into an A slot, all landing on the B slot's full barrier.
 template <int S, bool DS>
-__global__ void __launch_bounds__(THREADS) bottleneck_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int TRin = (p.TR - 1) * S + 3;
-  const int TCin = (p.TC - 1) * S + 3;
-  const int M1 = TRin * TCin;
-  const int M1p = round16(M1);
-  const int P = p.TR * p.TC;
-  const int Pp = round16(P);
-  const int LD1 = p.Cm + PAD;
-
-  // An identity block stages no A after phase 1, so y2 takes the A ring's
-  // place; a downsample block stages strided x beside y2 in phase 3.
-  const int stages = p.stages;
-  bf16* y1s = reinterpret_cast<bf16*>(smem);
-  bf16* As = y1s + M1p * LD1;
-  bf16* y2s = DS ? As + stages * MT_MAX * LDA : As;
-  bf16* Bs = DS ? y2s + Pp * LD1 : As + max(stages * MT_MAX * LDA, Pp * LD1);
-  bf16* zero8 = Bs + stages * KC * LDB_MAX;
-  // 3x3 tap table: ktab[k / 8] = y1 offset of A column k = (dr*3 + dc)*Cm + j.
-  int* ktab = reinterpret_cast<int*>(zero8 + 8);
-  if (threadIdx.x < 8) zero8[threadIdx.x] = __float2bfloat16(0.f);
-  for (int i = threadIdx.x; i < 9 * p.Cm / 8; i += THREADS) {
-    const int tap = i * 8 / p.Cm;
-    ktab[i] = ((tap / 3) * TCin + tap % 3) * LD1 + i * 8 - tap * p.Cm;
-  }
-
-  int bid = blockIdx.x;
-  const int tc = bid % p.tiles_c;
-  bid /= p.tiles_c;
-  const int tr = bid % p.tiles_r;
-  const int b = bid / p.tiles_r;
-  const int r0 = tr * p.TR;
-  const int c0 = tc * p.TC;
-  const int hi0 = r0 * S - 1;  // input row of halo row 0
-  const int wi0 = c0 * S - 1;
-  const int64_t img = static_cast<int64_t>(b) * p.H * p.W;
-  const int64_t img_out = static_cast<int64_t>(b) * p.Ho * p.Wo;
-  const bf16* __restrict__ x = p.x;
-
-  // NHWC pixel of halo row m, or -1 outside the image.
-  auto halo_pixel = [&](int m) -> int64_t {
-    if (m >= M1) return -1;
-    const int h = hi0 + m / TCin;
-    const int w = wi0 + m % TCin;
-    if (h < 0 || h >= p.H || w < 0 || w >= p.W) return -1;
-    return img + static_cast<int64_t>(h) * p.W + w;
-  };
-  auto staged_base = [](int m) { return m * LDA; };
-  auto staged_ptr = [&](int buf, int base, int k) {
-    return As + buf * MT_MAX * LDA + base + (k & (KC - 1));
-  };
-  Acc acc;
-
-  // 1. y1 on the halo window, zero outside the image.
-  for (int mb = 0; mb < M1; mb += MT_MAX) {
-    const int rows = min(MT_MAX, M1p - mb);
-    const int strips = rows / 16;
-    const StagedX stage_x(As, x, p.C, rows, [&](int m) { return halo_pixel(mb + m); });
-    SSG_PASS(rows, {
-      for (int n0 = 0; n0 < p.Cm; n0 += Grid<WC>::NC) {
-        zero_acc(acc);
-        mma_pass<WC>(acc, strips, p.C, p.w1, p.Cm, n0, Bs, zero8, stages, stage_x, staged_base,
-                     staged_ptr);
-        epilogue<WC>(acc, strips, n0, [&](int m, int n, float v0, float v1) {
-          if (n >= p.Cm) return;
-          const bool in = halo_pixel(mb + m) >= 0;
-          store2(y1s + (mb + m) * LD1 + n, in ? fmaxf(v0 + p.b1[n], 0.f) : 0.f,
-                 in ? fmaxf(v1 + p.b1[n + 1], 0.f) : 0.f);
-        });
+__device__ void produce(const Params& p, Ring& ring, unsigned char* Bs, unsigned char* As,
+                        int b, int r0, int c0) {
+  const Layout& L = p.L;
+  auto chunks = [&](const CUtensorMap* wmap, int K, int N, int n0, int nc,
+                    const CUtensorMap* amap, int aw, int ah, int a_bytes) {
+    for (int k0 = 0; k0 < K; k0 += KC) {
+      if (ring.b.count >= ring.sb) wait_guarded(ring.empty + ring.b.slot, ring.b.parity ^ 1);
+      if (amap != nullptr && ring.a.count >= ring.sa)
+        wait_guarded(ring.empty_a + ring.a.slot, ring.a.parity ^ 1);
+      uint64_t* full = ring.full + ring.b.slot;
+      const int boxes = cdiv(N - n0, BOX_N) < nc / BOX_N ? cdiv(N - n0, BOX_N) : nc / BOX_N;
+      expect_tx(full, boxes * BOX_BYTES + (amap != nullptr ? a_bytes : 0));
+      for (int j = 0; j < boxes; ++j)
+        box2d(Bs + ring.b.slot * L.b_slot + j * BOX_BYTES, wmap, n0 + j * BOX_N, k0, full);
+      ring.b.next(ring.sb);
+      if (amap != nullptr) {
+        box4d(As + ring.a.slot * L.a_slot, amap, k0, aw, ah, b, full);
+        ring.a.next(ring.sa);
       }
-    })
+    }
+  };
+  // 1. y1, band by band of the halo window.
+  const int nc1 = pass_nc(L.rows1, L.wide);
+  for (int band = 0; band * L.BR < L.TRin; ++band)
+    for (int n0 = 0; n0 < p.Cm; n0 += nc1)
+      chunks(&p.map_w1, p.C, p.Cm, n0, nc1, &p.map_x, c0 * S - 1, r0 * S - 1 + band * L.BR,
+             L.BR * L.TCin * ROW_BYTES);
+  // 2. y2.
+  const int nc2 = pass_nc(round16(p.TR * p.TC), L.wide);
+  for (int n0 = 0; n0 < p.Cm; n0 += nc2)
+    chunks(&p.map_w2, 9 * p.Cm, p.Cm, n0, nc2, nullptr, 0, 0, 0);
+  // 3. out: w3, then (downsample) wd with the strided x.
+  for (int n0 = 0; n0 < p.Cout; n0 += nc2) {
+    chunks(&p.map_w3, p.Cm, p.Cout, n0, nc2, nullptr, 0, 0, 0);
+    if (DS)
+      chunks(&p.map_wd, p.C, p.Cout, n0, nc2, &p.map_xs, c0 * S, r0 * S,
+             p.TR * p.TC * ROW_BYTES);
+  }
+}
+
+// A block's shared memory as its Layout carves it, with the mbarriers and
+// the 3x3 tap table set up.
+struct Block {
+  unsigned char* Bs;  // the B ring
+  unsigned char* As;  // the A ring
+  bf16* y1s;
+  bf16* y2s;
+  uint32_t bs, as, z8;  // shared addresses of the two rings and of 8 zeros
+  const int* ktab;      // ktab[k / 8] = y1 offset of A column k = (dr*3 + dc)*Cm + j
+  Ring ring;
+  // A from an x box in the A ring: pixel row m at base m * ROW_BYTES,
+  // 128B-swizzled.
+  __device__ __forceinline__ uint32_t box(int a_slot, int slot, int base, int k) const {
+    return as + slot * a_slot + base + ((((k >> 3) & 7) ^ (threadIdx.x & 7)) << 4);
+  }
+};
+
+// Run by every thread of the block; ends on the last block-wide barrier (the
+// producer warp leaves after it).
+__device__ __forceinline__ Block setup(const Params& p, unsigned char* smem_raw) {
+  unsigned char* smem = smem_raw + ((ALIGN - (smem_u32(smem_raw) & (ALIGN - 1))) & (ALIGN - 1));
+  const Layout& L = p.L;
+  Block k;
+  k.Bs = smem;
+  k.As = smem + L.off_a;
+  k.y2s = reinterpret_cast<bf16*>(smem + L.off_y2);
+  k.y1s = reinterpret_cast<bf16*>(smem + L.off_y1);
+  bf16* zero8 = reinterpret_cast<bf16*>(smem + L.off_misc);
+  k.ring.full = reinterpret_cast<uint64_t*>(smem + L.off_misc + 16);
+  k.ring.empty = k.ring.full + L.sb;
+  k.ring.empty_a = k.ring.empty + L.sb;
+  k.ring.sb = L.sb;
+  k.ring.sa = L.sa;
+  int* ktab = reinterpret_cast<int*>(k.ring.empty_a + L.sa);
+  if (threadIdx.x < 8) zero8[threadIdx.x] = __float2bfloat16(0.f);
+  for (int i = threadIdx.x; i < 9 * p.Cm / 8; i += BLOCK_THREADS) {
+    const int tap = i * 8 / p.Cm;
+    ktab[i] = ((tap / 3) * L.TCin + tap % 3) * (p.Cm + PAD) + i * 8 - tap * p.Cm;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L.sb; ++s) {
+      bar_init(k.ring.full + s, 1);
+      bar_init(k.ring.empty + s, WARPS);
+    }
+    for (int s = 0; s < L.sa; ++s) bar_init(k.ring.empty_a + s, WARPS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  k.ktab = ktab;
+  k.bs = smem_u32(k.Bs);
+  k.as = smem_u32(k.As);
+  k.z8 = smem_u32(zero8);
+  return k;
+}
+
+// Phases 1 and 2 of the consumers on the tile of image b at output row r0,
+// column c0: y1 on the halo window, then y2, into shared memory, each phase
+// ending on the consumers' barrier. EARLY as in mma_pass.
+template <int S, bool EARLY>
+__device__ __forceinline__ void y1_y2(const Params& p, Block& k, Acc& acc, int r0, int c0) {
+  const Layout& L = p.L;
+  const int TCin = L.TCin;
+  const int M1 = L.TRin * TCin;
+  const int P = p.TR * p.TC;
+  const int LD1 = p.Cm + PAD;
+  const int hi0 = r0 * S - 1;  // input row of halo row 0
+  const int wi0 = c0 * S - 1;
+
+  // 1. y1 on the halo window, band by band (BR halo rows each), zero outside
+  // the image. A band's last strip may run past its rows, over slot bytes
+  // from an earlier box: those rows are the next band's and are not stored.
+  auto box_base = [](int m) { return m * ROW_BYTES; };
+  auto box_addr = [&](int slot, int base, int kk) { return k.box(L.a_slot, slot, base, kk); };
+  SSG_PASS(L.rows1, L.wide, {
+    for (int mb = 0; mb < M1; mb += L.BR * TCin) {
+      const int rows = min(L.BR * TCin, M1 - mb);
+      const int strips = round16(rows) / 16;
+      for (int n0 = 0; n0 < p.Cm; n0 += Grid<WC>::NC) {
+        float2 bias[4];
+        load_bias<WC>(bias, p.b1, p.Cm, n0);
+        zero_acc(acc);
+        mma_pass<WC, true, EARLY>(acc, strips, p.C, k.ring, k.bs, L.b_slot, k.z8, box_base,
+                                  box_addr);
+        for_each_pair<WC>(strips, n0, [&](int s, int t, int h, int m, int n) {
+          if (n >= p.Cm || m >= rows) return;
+          const int hi = hi0 + (mb + m) / TCin;
+          const int wi = wi0 + (mb + m) % TCin;
+          const bool in = hi >= 0 && hi < p.H && wi >= 0 && wi < p.W;
+          store2(k.y1s + (mb + m) * LD1 + n, in ? fmaxf(acc[s][t][2 * h] + bias[t].x, 0.f) : 0.f,
+                 in ? fmaxf(acc[s][t][2 * h + 1] + bias[t].y, 0.f) : 0.f);
+        });
+      }
+    }
+  })
+  consumers_sync();
 
   // 2. y2 = relu(conv3x3_s(y1) + b2): A[m, (dr*3 + dc)*Cm + j] =
   // y1[(r*S + dr)*TCin + c*S + dc, j] for output pixel m = (r, c).
-  {
-    const int strips = Pp / 16;
-    auto row_base = [&](int m) {
-      if (m >= P) m = 0;  // padding rows: any finite row
-      return (m / p.TC * S * TCin + m % p.TC * S) * LD1;
-    };
-    auto a_ptr = [&](int, int base, int k) { return y1s + base + ktab[k >> 3]; };
-    SSG_PASS(Pp, {
-      for (int n0 = 0; n0 < p.Cm; n0 += Grid<WC>::NC) {
-        zero_acc(acc);
-        mma_pass<WC>(acc, strips, 9 * p.Cm, p.w2, p.Cm, n0, Bs, zero8, stages, [](int, int) {},
-                     row_base, a_ptr);
-        epilogue<WC>(acc, strips, n0, [&](int m, int n, float v0, float v1) {
-          if (n >= p.Cm) return;
-          store2(y2s + m * LD1 + n, fmaxf(v0 + p.b2[n], 0.f), fmaxf(v1 + p.b2[n + 1], 0.f));
-        });
-      }
-    })
-  }
-  __syncthreads();
+  const int strips = round16(P) / 16;
+  const uint32_t y1a = smem_u32(k.y1s);
+  auto row_base = [&](int m) {
+    if (m >= P) m = 0;  // padding rows: any finite row
+    return (m / p.TC * S * TCin + m % p.TC * S) * LD1;
+  };
+  auto a_addr = [&](int, int base, int kk) -> uint32_t {
+    return y1a + (base + k.ktab[kk >> 3]) * 2;
+  };
+  SSG_PASS(round16(P), L.wide, {
+    for (int n0 = 0; n0 < p.Cm; n0 += Grid<WC>::NC) {
+      float2 bias[4];
+      load_bias<WC>(bias, p.b2, p.Cm, n0);
+      zero_acc(acc);
+      mma_pass<WC, false, EARLY>(acc, strips, 9 * p.Cm, k.ring, k.bs, L.b_slot, k.z8, row_base,
+                                 a_addr);
+      for_each_pair<WC>(strips, n0, [&](int s, int t, int h, int m, int n) {
+        if (n >= p.Cm) return;
+        store2(k.y2s + m * LD1 + n, fmaxf(acc[s][t][2 * h] + bias[t].x, 0.f),
+               fmaxf(acc[s][t][2 * h + 1] + bias[t].y, 0.f));
+      });
+    }
+  })
+  consumers_sync();
+}
 
-  // 3. out = relu(y2 @ w3 + b3 + residual).
-  {
-    const int strips = Pp / 16;
-    // Output pixel of tile row m (NHWC offset in out), or -1.
-    auto out_pixel = [&](int m) -> int64_t {
-      if (m >= P) return -1;
-      const int r = r0 + m / p.TC;
-      const int c = c0 + m % p.TC;
-      if (r >= p.Ho || c >= p.Wo) return -1;
-      return img_out + static_cast<int64_t>(r) * p.Wo + c;
-    };
-    auto y2_base = [&](int m) { return m * LD1; };
-    auto y2_ptr = [&](int, int base, int k) { return y2s + base + k; };
-    // The strided residual x[r*S, c*S], staged like x in phase 1 (DS only).
-    const StagedX stage_xs(As, x, p.C, DS ? Pp : 0, [&](int m) -> int64_t {
-      if (out_pixel(m) < 0) return -1;
-      return img + static_cast<int64_t>((r0 + m / p.TC) * S) * p.W + (c0 + m % p.TC) * S;
-    });
-    SSG_PASS(Pp, {
+// NHWC offset in out of row m of the tile of image b at output row r0,
+// column c0, or -1 (a padding row, or past the image).
+__device__ __forceinline__ int64_t out_pixel(const Params& p, int b, int r0, int c0, int m) {
+  if (m >= p.TR * p.TC) return -1;
+  const int r = r0 + m / p.TC;
+  const int c = c0 + m % p.TC;
+  if (r >= p.Ho || c >= p.Wo) return -1;
+  return (static_cast<int64_t>(b) * p.Ho + r) * p.Wo + c;
+}
+
+// The identity block (stride 1, Cout == C), a block a tile: its y2 takes
+// the A ring's place after phase 1, so no later tile's boxes may follow.
+// Two blocks share an SM where they fit (96 registers a thread).
+__global__ void __launch_bounds__(BLOCK_THREADS, 2)
+    identity_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(ALIGN) unsigned char smem_raw[];
+  Block k = setup(p, smem_raw);
+  int bid = blockIdx.x;
+  const int c0 = bid % p.tiles_c * p.TC;
+  bid /= p.tiles_c;
+  const int r0 = bid % p.tiles_r * p.TR;
+  const int b = bid / p.tiles_r;
+  if (threadIdx.x >= THREADS) {
+    if (threadIdx.x == THREADS) produce<1, false>(p, k.ring, k.Bs, k.As, b, r0, c0);
+    return;
+  }
+  Acc acc;
+  y1_y2<1, false>(p, k, acc, r0, c0);
+
+  // 3. out = relu(y2 @ w3 + b3 + x).
+  const bf16* __restrict__ x = p.x;
+  const int strips = round16(p.TR * p.TC) / 16;
+  const uint32_t y2a = smem_u32(k.y2s);
+  auto y2_base = [&](int m) { return m * (p.Cm + PAD); };
+  auto y2_addr = [&](int, int base, int kk) -> uint32_t { return y2a + (base + kk) * 2; };
+  SSG_PASS(strips * 16, p.L.wide, {
+    for (int n0 = 0; n0 < p.Cout; n0 += Grid<WC>::NC) {
+      // The pass's residual (x at the output pixels) is loaded before its
+      // K loop, so the loads' latency hides behind the products.
+      __nv_bfloat162 res[MAX_STRIPS][4][2];
+      for_each_pair<WC>(strips, n0, [&](int s, int t, int h, int m, int n) {
+        const int64_t pix = out_pixel(p, b, r0, c0, m);
+        res[s][t][h] = pix < 0 || n >= p.Cout
+                           ? __floats2bfloat162_rn(0.f, 0.f)
+                           : *reinterpret_cast<const __nv_bfloat162*>(x + pix * p.C + n);
+      });
+      float2 bias[4];
+      load_bias<WC>(bias, p.b3, p.Cout, n0);
+      zero_acc(acc);
+      mma_pass<WC, false, false>(acc, strips, p.Cm, k.ring, k.bs, p.L.b_slot, k.z8, y2_base,
+                                 y2_addr);
+      for_each_pair<WC>(strips, n0, [&](int s, int t, int h, int m, int n) {
+        const int64_t pix = out_pixel(p, b, r0, c0, m);
+        if (pix < 0 || n >= p.Cout) return;
+        store2(p.out + pix * p.Cout + n,
+               fmaxf(acc[s][t][2 * h] + bias[t].x + __bfloat162float(res[s][t][h].x), 0.f),
+               fmaxf(acc[s][t][2 * h + 1] + bias[t].y + __bfloat162float(res[s][t][h].y), 0.f));
+      });
+    }
+  })
+}
+
+// The downsample block (stride S, a strided 1x1 product as its residual):
+// BLOCKS blocks an SM (one: ~140 registers a thread, two: 96), which walk
+// over the tiles t = blockIdx.x, + gridDim.x, ..., so the producer loads the
+// next tile while the consumers finish this one; a chunk's slots are
+// released before its last products.
+template <int S, int BLOCKS>
+__global__ void __launch_bounds__(BLOCK_THREADS, BLOCKS)
+    downsample_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(ALIGN) unsigned char smem_raw[];
+  Block k = setup(p, smem_raw);
+  const int tiles = p.B * p.tiles_r * p.tiles_c;
+  auto tile = [&](int t, int& b, int& r0, int& c0) {
+    c0 = t % p.tiles_c * p.TC;
+    t /= p.tiles_c;
+    r0 = t % p.tiles_r * p.TR;
+    b = t / p.tiles_r;
+  };
+  if (threadIdx.x >= THREADS) {
+    if (threadIdx.x == THREADS) {
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int b, r0, c0;
+        tile(t, b, r0, c0);
+        produce<S, true>(p, k.ring, k.Bs, k.As, b, r0, c0);
+      }
+    }
+    return;
+  }
+
+  const int strips = round16(p.TR * p.TC) / 16;
+  const uint32_t y2a = smem_u32(k.y2s);
+  auto y2_base = [&](int m) { return m * (p.Cm + PAD); };
+  auto y2_addr = [&](int, int base, int kk) -> uint32_t { return y2a + (base + kk) * 2; };
+  // The strided residual x[r*S, c*S]: the box's pixel m is tile row m.
+  auto box_base = [](int m) { return m * ROW_BYTES; };
+  auto box_addr = [&](int slot, int base, int kk) { return k.box(p.L.a_slot, slot, base, kk); };
+  Acc acc;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    int b, r0, c0;
+    tile(t, b, r0, c0);
+    y1_y2<S, true>(p, k, acc, r0, c0);
+
+    // 3. out = relu(y2 @ w3 + b3 + xs @ wd + bd).
+    SSG_PASS(strips * 16, p.L.wide, {
       for (int n0 = 0; n0 < p.Cout; n0 += Grid<WC>::NC) {
-        // The pass's residual (identity: x at the output pixels) is loaded
-        // before its K loop, so the loads' latency hides behind the products.
-        __nv_bfloat162 res[MAX_STRIPS][4][2];
-        if constexpr (!DS) {
-          for_each_pair<WC>(strips, n0, [&](int s, int t, int h, int m, int n) {
-            const int64_t pix = out_pixel(m);
-            res[s][t][h] = pix < 0 || n >= p.Cout
-                               ? __floats2bfloat162_rn(0.f, 0.f)
-                               : *reinterpret_cast<const __nv_bfloat162*>(x + pix * p.C + n);
-          });
-        }
+        float2 bias[4], bias_d[4];
+        load_bias<WC>(bias, p.b3, p.Cout, n0);
+        load_bias<WC>(bias_d, p.bd, p.Cout, n0);
         zero_acc(acc);
-        mma_pass<WC>(acc, strips, p.Cm, p.w3, p.Cout, n0, Bs, zero8, stages, [](int, int) {}, y2_base,
-                     y2_ptr);
-        if constexpr (DS) {
-          mma_pass<WC>(acc, strips, p.C, p.wd, p.Cout, n0, Bs, zero8, stages, stage_xs, staged_base,
-                       staged_ptr);
-        }
+        mma_pass<WC, false, true>(acc, strips, p.Cm, k.ring, k.bs, p.L.b_slot, k.z8, y2_base,
+                                  y2_addr);
+        mma_pass<WC, true, true>(acc, strips, p.C, k.ring, k.bs, p.L.b_slot, k.z8, box_base,
+                                 box_addr);
         for_each_pair<WC>(strips, n0, [&](int s, int t, int h, int m, int n) {
-          const int64_t pix = out_pixel(m);
+          const int64_t pix = out_pixel(p, b, r0, c0, m);
           if (pix < 0 || n >= p.Cout) return;
-          float r0v, r1v;
-          if constexpr (DS) {
-            r0v = p.bd[n];
-            r1v = p.bd[n + 1];
-          } else {
-            r0v = __bfloat162float(res[s][t][h].x);
-            r1v = __bfloat162float(res[s][t][h].y);
-          }
-          store2(p.out + pix * p.Cout + n, fmaxf(acc[s][t][2 * h] + p.b3[n] + r0v, 0.f),
-                 fmaxf(acc[s][t][2 * h + 1] + p.b3[n + 1] + r1v, 0.f));
+          store2(p.out + pix * p.Cout + n,
+                 fmaxf(acc[s][t][2 * h] + bias[t].x + bias_d[t].x, 0.f),
+                 fmaxf(acc[s][t][2 * h + 1] + bias[t].y + bias_d[t].y, 0.f));
         });
       }
     })
@@ -457,43 +746,96 @@ __global__ void __launch_bounds__(THREADS) bottleneck_kernel(const Params p) {
 
 #undef SSG_PASS
 
-int smem_bytes(int TR, int TC, int S, bool ds, int Cm, int stages) {
-  const int M1p = round16(((TR - 1) * S + 3) * ((TC - 1) * S + 3));
-  const int y2 = round16(TR * TC) * (Cm + PAD);
-  const int ring_a = stages * MT_MAX * LDA;
-  return (M1p * (Cm + PAD) + (ds ? ring_a + y2 : (ring_a > y2 ? ring_a : y2)) +
-          stages * KC * LDB_MAX + 8) * 2 + 9 * Cm / 8 * 4;
-}
-
-// Output tile of a block: at most cap pixels (full output width where it
-// fits, then as many rows as fit), shrunk until its shared memory fits with
-// the deepest ring, then evened out so the ragged last tile wastes as little
-// as the tile count allows. cap starts at 128 and halves, down to 32, while
-// the grid has fewer blocks than the 132 SMs of an H100. The ring is the
-// deepest that lets two blocks share an SM, else the deepest: measured on
-// an H100, a second resident block beats a deeper ring.
-bool plan(int B, int Ho, int Wo, int S, bool ds, int Cm, int* TR, int* TC, int* stages) {
+// Output tile, rings and layout of a launch. The tile: at most cap pixels
+// (full output width where it fits, up to TCIN_MAX halo columns, then as
+// many rows as fit), shrunk until its shared memory fits with a 4-slot
+// weight ring, then evened out so the ragged last tile wastes as little as
+// the tile count allows; cap starts at 128 and halves, down to 32, while the
+// grid has fewer blocks than the 132 SMs of an H100. The rings: the deepest
+// weight ring (then x ring) that lets two blocks share an SM, with the wide
+// grid for short passes, else with the narrow one (8 KB weight slots), else
+// the deepest for one block an SM. Measured on an H100: a second resident
+// block beats a deeper ring (its products and epilogues fill the first
+// one's waits), for both instances.
+bool plan(int B, int Ho, int Wo, int S, bool ds, int Cm, int* TR, int* TC, Layout* L) {
   for (int cap = P_MAX;; cap /= 2) {
     int tc = Wo < cap ? Wo : cap;
+    if (tc > (TCIN_MAX - 3) / S + 1) tc = (TCIN_MAX - 3) / S + 1;
     int tr = Ho < cap / tc ? Ho : cap / tc;
-    while (smem_bytes(tr, tc, S, ds, Cm, MAX_STAGES) > SMEM_LIMIT) {
+    while (layout(tr, tc, S, ds, Cm, 4, 2, true).bytes > SMEM_LIMIT) {
       if (tr > 1) --tr;
       else if (tc > 1) --tc;
       else return false;
     }
-    const int tiles_r = (Ho + tr - 1) / tr;
-    const int tiles_c = (Wo + tc - 1) / tc;
-    *TR = (Ho + tiles_r - 1) / tiles_r;
-    *TC = (Wo + tiles_c - 1) / tiles_c;
-    *stages = MAX_STAGES;
-    for (int st = MAX_STAGES; st >= 2; --st) {
-      if (smem_bytes(*TR, *TC, S, ds, Cm, st) <= SMEM_TWO_PER_SM) {
-        *stages = st;
-        break;
-      }
-    }
-    if (static_cast<int64_t>(B) * tiles_r * tiles_c >= 132 || cap <= 32) return true;
+    const int tiles_r = cdiv(Ho, tr);
+    const int tiles_c = cdiv(Wo, tc);
+    *TR = cdiv(Ho, tiles_r);
+    *TC = cdiv(Wo, tiles_c);
+    if (static_cast<int64_t>(B) * tiles_r * tiles_c >= 132 || cap <= 32) break;
   }
+  const struct { int limit; bool wide; } tries[3] = {
+      {SMEM_TWO_PER_SM, true}, {SMEM_TWO_PER_SM, false}, {SMEM_LIMIT, true}};
+  for (const auto& t : tries) {
+    for (int sb = MAX_B_STAGES; sb >= 2; --sb)
+      for (int sa = MAX_A_STAGES; sa >= 2; --sa) {
+        *L = layout(*TR, *TC, S, ds, Cm, sb, sa, t.wide);
+        if (L->bytes <= t.limit) return true;
+      }
+  }
+  return false;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's entry-point lookup: no link
+// to libcuda. nullptr if the driver has none.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault) != cudaSuccess) {
+      cudaGetLastError();
+      return static_cast<EncodeTiled>(nullptr);
+    }
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// A bf16 tensor map with 128B-swizzled boxes and zero fill: dims and box
+// innermost first, strides in bytes of dims 1 .. rank - 1.
+bool encode(CUtensorMap* map, int rank, const void* ptr, const cuuint64_t* dims,
+            const cuuint64_t* strides, const cuuint32_t* box, const cuuint32_t* elem) {
+  const EncodeTiled fn = encode_tiled();
+  return fn != nullptr &&
+         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A row-major (K, N) bf16 weight in 64 x 64 boxes.
+bool encode_weight(CUtensorMap* map, const void* w, int K, int N) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(N) * 2};
+  const cuuint32_t box[2] = {BOX_N, KC};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, 2, w, dims, strides, box, elem);
+}
+
+// x (B, H, W, C) in boxes of 64 channels x bw x bh pixels, every s-th
+// column and row.
+bool encode_x(CUtensorMap* map, const void* x, int B, int H, int W, int C, int bw, int bh, int s) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(C) * 2,
+                                 static_cast<cuuint64_t>(W) * C * 2,
+                                 static_cast<cuuint64_t>(H) * W * C * 2};
+  const cuuint32_t box[4] = {KC, static_cast<cuuint32_t>(bw * s),
+                             static_cast<cuuint32_t>(bh * s), 1};
+  const cuuint32_t elem[4] = {1, static_cast<cuuint32_t>(s), static_cast<cuuint32_t>(s), 1};
+  return encode(map, 4, x, dims, strides, box, elem);
 }
 
 // fp32 blocks. The TPU kernel takes fp32 activations too (its products take
@@ -609,6 +951,23 @@ cudaError_t conv_f32(const float* in, const float* w, const float* bias, const f
   return cudaGetLastError();
 }
 
+// Blocks an SM of a launch with this layout.
+int blocks_per_sm(const Layout& L) { return L.bytes <= SMEM_TWO_PER_SM ? 2 : 1; }
+
+// Blocks of a launch of `tiles` tiles: one a tile, or, for a downsample
+// block, at most as many as the SMs hold (the kernel's blocks walk over the
+// tiles).
+cudaError_t grid_size(int64_t tiles, bool ds, const Layout& L, int* grid) {
+  if (tiles > 2147483647LL) return cudaErrorInvalidConfiguration;
+  *grid = static_cast<int>(tiles);
+  if (!ds) return cudaSuccess;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (blocks_per_sm(L) * sms < *grid) *grid = blocks_per_sm(L) * sms;
+  return err;
+}
+
 }  // namespace
 
 // Output tile, grid size and dynamic shared memory of a launch (ds != 0: a
@@ -619,15 +978,20 @@ extern "C" int ssg_bottleneck_plan(int64_t B, int64_t H, int64_t W, int64_t Cm, 
                                    int64_t ds, int64_t* out) {
   const int Ho = static_cast<int>((H - 1) / stride + 1);
   const int Wo = static_cast<int>((W - 1) / stride + 1);
-  int TR, TC, stages;
+  int TR, TC;
+  Layout L;
   if (!plan(static_cast<int>(B), Ho, Wo, static_cast<int>(stride), ds != 0, static_cast<int>(Cm),
-            &TR, &TC, &stages))
+            &TR, &TC, &L))
     return static_cast<int>(cudaErrorInvalidValue);
+  int grid;
+  const cudaError_t err =
+      grid_size(B * ((Ho + TR - 1) / TR) * ((Wo + TC - 1) / TC), ds != 0, L, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = TR;
   out[1] = TC;
-  out[2] = B * ((Ho + TR - 1) / TR) * ((Wo + TC - 1) / TC);
-  out[3] = smem_bytes(TR, TC, static_cast<int>(stride), ds != 0, static_cast<int>(Cm), stages);
-  out[4] = stages;
+  out[2] = grid;
+  out[3] = L.bytes;
+  out[4] = L.sb;
   return 0;
 }
 
@@ -635,25 +999,25 @@ extern "C" int ssg_bottleneck_plan(int64_t B, int64_t H, int64_t W, int64_t Cm, 
 // NHWC-contiguous. w1 (C, Cm), w2 (3, 3, Cm, Cm), w3 (Cm, Cout), wd (C, Cout):
 // bf16 row-major; b1, b2 (Cm,), b3, bd (Cout,): fp32. wd == nullptr selects
 // the identity block (stride 1, Cout == C). C, Cm, Cout multiples of 8;
-// pointers 16-byte aligned. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); does not synchronise.
+// x and the weights 16-byte aligned (tensor maps), the rest 4-byte aligned.
+// Encodes the launch's tensor maps (cudaErrorInvalidValue if one fails),
+// launches on `stream` and returns cudaGetLastError() (0 on success); does
+// not synchronise.
 extern "C" int ssg_bottleneck(const void* x, const void* w1, const float* b1, const void* w2,
                               const float* b2, const void* w3, const float* b3, const void* wd,
                               const float* bd, void* out, int64_t B, int64_t H, int64_t W,
                               int64_t C, int64_t Cm, int64_t Cout, int64_t stride, void* stream) {
   const bool ds = wd != nullptr;
+  auto misaligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 != 0; };
   if ((stride != 1 && stride != 2) || (!ds && (stride != 1 || Cout != C)) || C % 8 || Cm % 8 ||
-      Cout % 8 || B <= 0 || H <= 0 || W <= 0)
+      Cout % 8 || B <= 0 || H <= 0 || W <= 0 || misaligned(x) || misaligned(w1) ||
+      misaligned(w2) || misaligned(w3) || (ds && misaligned(wd)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.x = static_cast<const bf16*>(x);
-  p.w1 = static_cast<const bf16*>(w1);
   p.b1 = b1;
-  p.w2 = static_cast<const bf16*>(w2);
   p.b2 = b2;
-  p.w3 = static_cast<const bf16*>(w3);
   p.b3 = b3;
-  p.wd = static_cast<const bf16*>(wd);
   p.bd = bd;
   p.out = static_cast<bf16*>(out);
   p.B = static_cast<int>(B);
@@ -664,19 +1028,30 @@ extern "C" int ssg_bottleneck(const void* x, const void* w1, const float* b1, co
   p.Cout = static_cast<int>(Cout);
   p.Ho = static_cast<int>((H - 1) / stride + 1);
   p.Wo = static_cast<int>((W - 1) / stride + 1);
-  if (!plan(p.B, p.Ho, p.Wo, static_cast<int>(stride), ds, p.Cm, &p.TR, &p.TC, &p.stages))
+  const int s = static_cast<int>(stride);
+  if (!plan(p.B, p.Ho, p.Wo, s, ds, p.Cm, &p.TR, &p.TC, &p.L))
     return static_cast<int>(cudaErrorInvalidValue);
   p.tiles_r = (p.Ho + p.TR - 1) / p.TR;
   p.tiles_c = (p.Wo + p.TC - 1) / p.TC;
   const int64_t blocks = B * p.tiles_r * p.tiles_c;
-  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int smem = smem_bytes(p.TR, p.TC, static_cast<int>(stride), ds, p.Cm, p.stages);
-  void (*kernel)(const Params) = !ds ? bottleneck_kernel<1, false>
-                                 : stride == 1 ? bottleneck_kernel<1, true>
-                                               : bottleneck_kernel<2, true>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (!encode_x(&p.map_x, x, p.B, p.H, p.W, p.C, p.L.TCin, p.L.BR, 1) ||
+      !encode_weight(&p.map_w1, w1, p.C, p.Cm) || !encode_weight(&p.map_w2, w2, 9 * p.Cm, p.Cm) ||
+      !encode_weight(&p.map_w3, w3, p.Cm, p.Cout) ||
+      (ds && (!encode_x(&p.map_xs, x, p.B, p.H, p.W, p.C, p.TC, p.TR, s) ||
+              !encode_weight(&p.map_wd, wd, p.C, p.Cout))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool two = blocks_per_sm(p.L) == 2;
+  void (*kernel)(const Params) =
+      !ds ? identity_kernel
+          : stride == 1 ? (two ? downsample_kernel<1, 2> : downsample_kernel<1, 1>)
+                        : (two ? downsample_kernel<2, 2> : downsample_kernel<2, 1>);
+  int grid;
+  cudaError_t err = grid_size(blocks, ds, p.L, &grid);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.L.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(blocks), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<static_cast<unsigned>(grid), BLOCK_THREADS, p.L.bytes,
+           static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

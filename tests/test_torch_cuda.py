@@ -267,6 +267,108 @@ def test_bottleneck_kernel_rejects_bad_input(gen, cuda):
         fused_bottleneck_stage(x, (ws, _weights(gen, 64, 16, 64, True, cuda)), 1)
 
 
+# The kernel's operands arrive as tensor-map boxes: halo windows that cross
+# every image edge and the tile edges inside an image (H and W not multiples
+# of the tile; batches of 1-3, so the plan shrinks the tiles; a 130-wide map
+# split into two column tiles), channels that are multiples of 8 but not of
+# the 64-channel box (its tail reads the zero fill), a K of 9 Cm ending
+# inside a box.
+@pytest.mark.parametrize("b,h,w,c,cm", [(1, 11, 9, 64, 16), (2, 11, 9, 72, 24), (3, 7, 5, 40, 8),
+                                        (1, 5, 130, 16, 8), (2, 13, 3, 136, 40),
+                                        (1, 17, 6, 200, 56)])
+def test_bottleneck_kernel_box_edges(gen, cuda, b, h, w, c, cm):
+    x = _act(gen, (b, h, w, c), cuda)
+    ws = _weights(gen, c, cm, c, False, cuda)
+    out = fused_bottleneck(x, *ws)
+    torch.cuda.synchronize()
+    ref = bottleneck_ref(x, *ws)
+    assert bool(torch.isfinite(out.float()).all())
+    assert bf16_ulp_error(out, ref) <= BF16_ULPS
+
+
+# The downsample instance alone (a stage of one block): odd H and W at
+# stride 2, its strided residual box; channel counts off the 64-channel box;
+# batches of 1-3.
+@pytest.mark.parametrize("b,stride,h,w,c,cm,cout", [(1, 2, 13, 11, 40, 16, 72),
+                                                    (3, 2, 9, 7, 24, 8, 32),
+                                                    (2, 2, 17, 33, 72, 24, 104),
+                                                    (2, 1, 11, 9, 64, 16, 64),
+                                                    (1, 1, 5, 130, 16, 8, 32),
+                                                    (3, 2, 16, 8, 1024, 512, 2048)])
+def test_downsample_block_matches_ref(gen, cuda, b, stride, h, w, c, cm, cout):
+    x = _act(gen, (b, h, w, c), cuda)
+    blk = _weights(gen, c, cm, cout, True, cuda)
+    out = fused_bottleneck_stage(x, [blk], stride)
+    torch.cuda.synchronize()
+    ref = stage_ref(x, [blk], stride)
+    assert out.shape == ref.shape == (b, (h - 1) // stride + 1, (w - 1) // stride + 1, cout)
+    assert bool(torch.isfinite(out.float()).all())
+    assert bf16_ulp_error(out, ref) <= BF16_ULPS
+
+
+# Phase 1 computes y1 in bands of whole halo rows, over strips of 16 rows: a
+# 4 x 32 output tile's 6 x 34 halo window is two bands of 102 rows (112
+# strip rows), at stride 2 a 9 x 65 window is nine bands of 65 (80). With C
+# = 64 a band is one K chunk, so nothing orders one band's stores after the
+# last one's; and the downsample kernel's blocks walk over several tiles.
+# Every launch must give the same bits, within ulps of the plain version.
+@pytest.mark.parametrize("stride,h,w,cm,cout,ds", [(1, 68, 32, 64, 256, True),
+                                                   (2, 136, 64, 64, 256, True),
+                                                   (1, 68, 32, 16, 64, False)])
+def test_bottleneck_kernel_bands_over_many_launches(gen, cuda, stride, h, w, cm, cout, ds):
+    b, c = 8, 64
+    tile = bn_mod.plan(b, h, w, cm, stride, downsample=ds)
+    assert (tile["tile_rows"], tile["tile_cols"]) == (4, 32)
+    x = _act(gen, (b, h, w, c), cuda)
+    blk = _weights(gen, c, cm, cout, ds, cuda)
+    if ds:
+        run, ref = (lambda: fused_bottleneck_stage(x, [blk], stride)), stage_ref(x, [blk], stride)
+    else:
+        run, ref = (lambda: fused_bottleneck(x, *blk)), bottleneck_ref(x, *blk)
+    first = run()
+    torch.cuda.synchronize()
+    assert bf16_ulp_error(first, ref) <= BF16_ULPS
+    for _ in range(50):
+        assert torch.equal(run(), first)
+
+
+def test_bottleneck_kernel_rejects_misaligned_input(gen, cuda):
+    # Tensor maps need 16-byte aligned bases: a contiguous view 2 bytes in
+    # raises in the wrapper, for x and for a weight.
+    c, cm = 64, 16
+    ws = _weights(gen, c, cm, c, False, cuda)
+    flat = torch.zeros(2 * 4 * 4 * c + 1, dtype=torch.bfloat16, device=cuda)
+    x = flat[1:].view(2, 4, 4, c)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    with pytest.raises(ValueError):
+        fused_bottleneck(x, *ws)
+    w1 = torch.zeros(c * cm + 1, dtype=torch.bfloat16, device=cuda)[1:].view(c, cm)
+    with pytest.raises(ValueError):
+        fused_bottleneck(_act(gen, (2, 4, 4, c), cuda), w1, *ws[1:])
+
+
+def test_fused_eval_follows_refolded_weights(cuda):
+    # Launches before and after the weights change in place (the fold cache
+    # refolds, and the caching allocator may hand the new folded tensors the
+    # old addresses): each launch computes with the weights of its time.
+    kw = dict(num_features=0, num_parts=3, dtype=torch.bfloat16, stage_sizes=(2,))
+    model = models.create("resnet50", fused_eval=True, **kw)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.eval().to(cuda, memory_format=torch.channels_last)
+    blk = model.backbone.layer1[1]
+    x = _act(np.random.default_rng(3), (2, 16, 8, 256), cuda)
+    for step in range(3):
+        if step:
+            with torch.no_grad():
+                blk.conv2.weight.mul_(-1.5)
+                blk.bn3.running_mean.add_(0.25)
+        folded = blk.folded(torch.bfloat16)
+        with torch.no_grad():
+            out = blk(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        assert bf16_ulp_error(out, bottleneck_ref(x, *folded)) <= BF16_ULPS
+
+
 @pytest.mark.parametrize("m,n,d,squared", [(70, 33, 150, True), (5, 7, 3, False),
                                            (129, 257, 65, True), (1, 1, 1, False),
                                            (1000, 333, 2048, True)])
