@@ -16,7 +16,10 @@ DBSCAN (min_samples=4):
   the CUDA L1 kernel in the re-ranking;
 * path 2, fused-eval: the same weights with ``fused_eval=True``, whose 12
   identity bottlenecks run the CUDA bottleneck kernel, then the analytics
-  with the CUDA distance kernel (``dist_impl="kernel"``);
+  with the CUDA distance kernel (``dist_impl="kernel"``); then the fp32
+  fused-eval model (``dtype=torch.float32``, seed 0) on the first two
+  batches, its identity blocks in the bottleneck's fp32 (3xTF32) kernel,
+  against the unfused fp32 model;
 * path 3, fine-tuning (``train_phases``): T1, one fp32 train step of
   ResNet-50 at full width (batch 8) on the card against the same step on
   the CPU; T2, the bf16 train step at batch 64 (P 16 x K 4), timed; T3,
@@ -90,7 +93,8 @@ It checks them:
    at ragged symmetric shapes, y being x, where their output must be
    exactly symmetric; the bottleneck on activations captured from the path
    model, with its folded weights; its fp32 kernel on random fp32 blocks,
-   against the plain version in true fp32);
+   against the plain version in true fp32, per layer for the identity and
+   the downsample block, and against an fp64 block at layer3's shape);
 3. runs each path once as warm-up and once timed, with the kernels' launch
    counts set to 0 just before and read just after;
 4. checks the outputs (shapes, finiteness, unit-norm embeddings, label
@@ -101,7 +105,8 @@ It checks them:
 5. times each kernel, its plain version and the nearest PyTorch library
    form, at the path shapes, beside the least time the card could take
    for the call's work (a symmetric call needs N(N+1)/2 pairs; the
-   bottleneck also beside its times in PERF.md);
+   bottleneck also beside its times in PERF.md; its fp32 kernel beside the
+   3xTF32 and fp32 FMA bounds and cuDNN in true fp32);
 6. runs path 3 and checks it: T1's loss and gradients against the CPU, T2's
    loss falling on its repeated batch, T3's finite losses, training in each
    iteration, the reloaded checkpoint's embeddings (bit for bit) and the
@@ -202,7 +207,8 @@ from ssg_tpu_torch.feature_extraction import FeatureDatabase, extract_cnn_featur
 from ssg_tpu_torch.feature_extraction import database as feature_database
 from ssg_tpu_torch.metric_learning import KISSME
 from ssg_tpu_torch.ops import _build, bottleneck, bottleneck_stage, distance, l1
-from ssg_tpu_torch.ops.bottleneck import bf16_ulp_error, bottleneck_ref, fused_bottleneck
+from ssg_tpu_torch.ops.bottleneck import (_true_fp32, bf16_ulp_error, bottleneck_ref,
+                                          fused_bottleneck)
 from ssg_tpu_torch.ops.bottleneck_stage import fused_bottleneck_stage, stage_ref
 from ssg_tpu_torch.ops.distance import pairwise_distance, pairwise_distance_ref
 from ssg_tpu_torch.ops.rerank import _encode, _re_ranking_impl
@@ -244,6 +250,9 @@ STAGES = (("layer1", 3, 1), ("layer2", 4, 2), ("layer3", 6, 2), ("layer4", 3, 2)
 # Identity blocks at the path shapes (batch 128): (name, H, W, C, Cm, blocks a batch).
 IDENTITY = (("layer1", 64, 32, 256, 64, 2), ("layer2", 32, 16, 512, 128, 3),
             ("layer3", 16, 8, 1024, 256, 5), ("layer4", 8, 4, 2048, 512, 2))
+# Each stage's first (downsample) block at batch 128: (name, H, W, C, Cm, Cout, stride).
+DOWNSAMPLE = (("layer1", 64, 32, 64, 64, 256, 1), ("layer2", 64, 32, 256, 128, 512, 2),
+              ("layer3", 32, 16, 512, 256, 1024, 2), ("layer4", 16, 8, 1024, 512, 2048, 2))
 # The bottleneck kernel's times at the path shapes as PERF.md records them
 # for its cp.async-ring design (H100 80GB HBM3, 700 W): one identity block a
 # layer; a batch's 12 identity blocks and four stages; each stage's first
@@ -349,42 +358,63 @@ def block_work(x_shape, blk, stride: int) -> tuple[float, float, tuple]:
     return 2.0 * macs, wbytes, (b, ho, wo, cout)
 
 
-def blocks_bound_ms(x_shape, blocks, stride: int) -> tuple[float, str]:
+def blocks_bound_ms(x_shape, blocks, stride: int, route: str = "bf16") -> tuple[float, str]:
     """Least time for a run of folded blocks: its products on the bf16 tensor
-    cores, or reading its input and weights and writing its output once."""
-    ops, nbytes, shape = 0.0, 2.0 * float(np.prod(x_shape)), tuple(x_shape)
+    cores (``route="bf16"``), or for fp32 blocks as three TF32 tensor-core
+    products (``"3xtf32"``: hi.hi + hi.lo + lo.hi) or on the fp32 FMA pipes
+    (``"fma"``); or reading its input and weights and writing its output once
+    (2-byte activations in bf16, 4-byte in fp32)."""
+    act = 2.0 if route == "bf16" else 4.0
+    ops, nbytes, shape = 0.0, act * float(np.prod(x_shape)), tuple(x_shape)
     for i, blk in enumerate(blocks):
         o, wb, shape = block_work(shape, blk, stride if i == 0 and len(blk) == 8 else 1)
         ops += o
         nbytes += wb
-    nbytes += 2.0 * float(np.prod(shape))
-    ops_s, bytes_s = ops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    nbytes += act * float(np.prod(shape))
+    ops_s = {"bf16": ops / BF16_FLOP_PER_S, "3xtf32": 3.0 * ops / TF32_FLOP_PER_S,
+             "fma": ops / FP32_FMA_FLOP_PER_S}[route]
+    bytes_s = nbytes / HBM_BYTES_PER_S
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
 
-def eager_blocks(blocks, stride: int):
+def eager_blocks(blocks, stride: int, dtype: torch.dtype = torch.bfloat16):
     """The nearest library form of a run of folded blocks: cuDNN convolutions
-    with the same folded bf16 weights (bias in bf16) and eager ReLU / add, on
-    channels-last NCHW. Returns ``fn(x_nhwc) -> out_nhwc``."""
+    with the same folded weights (bias in ``dtype``) and eager ReLU / add, on
+    channels-last NCHW; in fp32 without TF32 (``_true_fp32``), the fp32
+    kernel's accuracy. Returns ``fn(x_nhwc) -> out_nhwc``."""
     def conv_w(w):  # (Cin, Cout) or HWIO -> OIHW, channels-last
         w = w[None, None] if w.dim() == 2 else w
         return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
 
-    prepared = [([conv_w(w) for w in blk[0::2]], [b.to(torch.bfloat16) for b in blk[1::2]])
+    prepared = [([conv_w(w) for w in blk[0::2]], [b.to(dtype) for b in blk[1::2]])
                 for blk in blocks]
 
     def run(x):
         x = x.permute(0, 3, 1, 2)
-        for i, (ws, bs) in enumerate(prepared):
-            s = stride if i == 0 and len(ws) == 4 else 1
-            y = F.conv2d(x, ws[0], bs[0]).relu_()
-            y = F.conv2d(y, ws[1], bs[1], stride=s, padding=1).relu_()
-            y = F.conv2d(y, ws[2], bs[2])
-            res = x if len(ws) == 3 else F.conv2d(x, ws[3], bs[3], stride=s)
-            x = y.add_(res).relu_()
+        with _true_fp32() if dtype == torch.float32 else contextlib.nullcontext():
+            for i, (ws, bs) in enumerate(prepared):
+                s = stride if i == 0 and len(ws) == 4 else 1
+                y = F.conv2d(x, ws[0], bs[0]).relu_()
+                y = F.conv2d(y, ws[1], bs[1], stride=s, padding=1).relu_()
+                y = F.conv2d(y, ws[2], bs[2])
+                res = x if len(ws) == 3 else F.conv2d(x, ws[3], bs[3], stride=s)
+                x = y.add_(res).relu_()
         return x.permute(0, 2, 3, 1)
 
     return run
+
+
+def block_f64(x, blk, stride: int = 1):
+    """One folded block in fp64 on ``x``'s device, nothing rounded between
+    its convolutions: the reference for the fp32 kernel's and the plain
+    version's errors."""
+    w1, b1, w2, b2, w3, b3, *ds = (t.double() for t in blk)
+    xd = x.double()
+    y = torch.relu(xd @ w1 + b1)
+    y = F.conv2d(y.permute(0, 3, 1, 2), w2.permute(3, 2, 0, 1), stride=stride, padding=1)
+    y = torch.relu(y.permute(0, 2, 3, 1) + b2) @ w3 + b3
+    res = xd if not ds else xd[:, ::stride, ::stride] @ ds[0] + ds[1]
+    return torch.relu(y + res)
 
 
 def random_block(gen: torch.Generator, cin: int, cm: int, cout: int, ds: bool, dev):
@@ -445,11 +475,15 @@ def check_kernels_ragged(dev: torch.device) -> None:
         check(rel <= DIST_TOL, f"distance kernel disagrees at ({m},{n},{d})")
 
 
-def check_fp32_blocks(dev: torch.device) -> None:
-    """The bottleneck's fp32 kernel (``ssg_bottleneck_f32``) against the plain
-    version in true fp32 at ragged shapes and in a downsample stage, then on
-    one random identity block at each path width, timed beside the plain
-    version and the fp32 FMA bound."""
+def check_fp32_blocks(dev: torch.device) -> dict:
+    """The bottleneck's fp32 kernel (``ssg_bottleneck_f32``, 3xTF32 tensor-core
+    launches) against the plain version in true fp32 at ragged shapes and in a
+    downsample stage; then, on random blocks at each path width, the identity
+    block and the stage's first (downsample) block alone, timed beside the
+    plain version, the cuDNN form in true fp32 (``eager_blocks``) and the
+    3xTF32 and fp32 FMA bounds; then the kernel's and the plain version's
+    errors against an fp64 block at layer3's shape. Returns the kernels-line
+    entry: per batch of the path, its 12 identity blocks."""
     gen = torch.Generator(device=dev).manual_seed(2)
 
     def f32(blk):
@@ -459,7 +493,7 @@ def check_fp32_blocks(dev: torch.device) -> None:
         check(out.dtype == torch.float32 and bool(torch.isfinite(out).all()), "fp32 output bad")
         return float((out - ref).abs().max()) / float(ref.abs().max())
 
-    for (b, h, w, c, cm) in [(3, 5, 7, 32, 8), (2, 9, 13, 40, 8)]:
+    for (b, h, w, c, cm) in [(3, 5, 7, 32, 8), (2, 9, 13, 40, 8), (2, 9, 13, 40, 24)]:
         x = torch.randn((b, h, w, c), generator=gen, device=dev).abs()
         blk = f32(random_block(gen, c, cm, c, False, dev))
         err = rel(fused_bottleneck(x, *blk), bottleneck_ref(x, *blk))
@@ -471,23 +505,73 @@ def check_fp32_blocks(dev: torch.device) -> None:
     err = rel(fused_bottleneck_stage(x, blocks, 2), stage_ref(x, blocks, 2))
     print(f"fp32 stage ragged (2,9,7,24)/Cm 8 stride 2: rel {err:.2e}")
     check(err <= FP32_REL, "fp32 stage disagrees at (2,9,7,24)/8 s2")
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
-    for name, h, w, c, cm, count in IDENTITY:
+
+    def timed(label, x, blk, stride, kernel_fn, plain_fn):
+        out, ref = kernel_fn(), plain_fn()
+        library = eager_blocks([blk], stride, torch.float32)
+        err = rel(out, ref)
+        check(err <= FP32_REL, f"fp32 {label} disagrees: rel {err:.2e}")
+        r = dict(rel=err, abs_err=float((out - ref).abs().max()),
+                 library_rel=rel(library(x), ref),
+                 ms=cuda_ms(kernel_fn, 5), plain_ms=cuda_ms(plain_fn, 3),
+                 library_ms=cuda_ms(lambda: library(x), 5))
+        r["bound_ms"], r["bound_by"] = blocks_bound_ms(tuple(x.shape), [blk], stride, "3xtf32")
+        r["fma_ms"] = blocks_bound_ms(tuple(x.shape), [blk], stride, "fma")[0]
+        print(f"fp32 {label} {tuple(x.shape)}: rel {err:.2e} (cuDNN true fp32 "
+              f"{r['library_rel']:.2e}), kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"cuDNN true fp32 {r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}, 3xTF32; FMA {r['fma_ms']:.4f}), "
+              f"{r['bound_ms'] / r['ms']:.1%} of bound")
+        return r
+
+    per_block, per_downsample = [], []
+    for (name, h, w, c, cm, count), (_, h0, w0, c0, _, cout, s) in zip(IDENTITY, DOWNSAMPLE):
         x = torch.randn((BATCH, h, w, c), generator=gen, device=dev).abs()
         blk = f32(random_block(gen, c, cm, c, False, dev))
-        err = rel(fused_bottleneck(x, *blk), bottleneck_ref(x, *blk))
-        check(err <= FP32_REL, f"fp32 {name} identity block disagrees: rel {err:.2e}")
-        r = dict(ms=cuda_ms(lambda: fused_bottleneck(x, *blk), 5),
-                 plain_ms=cuda_ms(lambda: bottleneck_ref(x, *blk), 5),
-                 bound_ms=block_work(tuple(x.shape), blk, 1)[0] / FP32_FMA_FLOP_PER_S * 1e3)
-        print(f"fp32 {name} identity block {tuple(x.shape)}: rel {err:.2e}, kernel "
-              f"{r['ms']:.3f} ms, plain (true fp32) {r['plain_ms']:.3f} ms, bound "
-              f"{r['bound_ms']:.3f} ms (operations, fp32 FMA)")
-        for k in total:
-            total[k] += count * r[k]
-    print(f"fp32 fused_bottleneck per batch (12 identity blocks): kernel {total['ms']:.3f} ms, "
-          f"plain {total['plain_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms, "
-          f"{total['bound_ms'] / total['ms']:.1%} of bound")
+        per_block.append((count, timed(f"{name} identity block", x, blk, 1,
+                                       lambda: fused_bottleneck(x, *blk),
+                                       lambda: bottleneck_ref(x, *blk))))
+        del x
+        x0 = torch.randn((BATCH, h0, w0, c0), generator=gen, device=dev).abs()
+        first = f32(random_block(gen, c0, cm, cout, True, dev))
+        per_downsample.append((1, timed(f"{name} downsample block", x0, first, s,
+                                        lambda: fused_bottleneck_stage(x0, [first], s),
+                                        lambda: stage_ref(x0, [first], s))))
+        del x0
+
+    def total(rows):
+        out = {k: sum(n * r[k] for n, r in rows)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms", "fma_ms")}
+        out.update(rel=max(r["rel"] for _, r in rows), abs_err=max(r["abs_err"] for _, r in rows))
+        return out
+
+    row, ds_row = total(per_block), total(per_downsample)
+    for what, r in (("12 identity blocks", row), ("4 downsample blocks", ds_row)):
+        print(f"fp32 {what} per batch: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"cuDNN true fp32 {r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+              f"(3xTF32; FMA {r['fma_ms']:.3f}), {r['bound_ms'] / r['ms']:.1%} of bound")
+
+    # Ground for FP32_REL: both sides against the block in fp64, at layer3's shape.
+    name, h, w, c, cm, _ = IDENTITY[2]
+    x = torch.randn((BATCH, h, w, c), generator=gen, device=dev).abs()
+    blk = f32(random_block(gen, c, cm, c, False, dev))
+    exact = block_f64(x, blk)
+    scale = float(exact.abs().max())
+    kernel_err = float((fused_bottleneck(x, *blk).double() - exact).abs().max())
+    plain_err = float((bottleneck_ref(x, *blk).double() - exact).abs().max())
+    print(f"fp32 {name} identity block against fp64: kernel max abs err {kernel_err:.3e} "
+          f"({kernel_err / scale:.2e} of max |ref|), plain {plain_err:.3e} "
+          f"({plain_err / scale:.2e}), max |ref| {scale:.3f}")
+    check(kernel_err <= FP32_REL * scale, f"fp32 kernel off the fp64 block by {kernel_err:.3e}")
+    share = {kind: sum(n * r["bound_ms"] for n, r in per_block if r["bound_by"] == kind)
+             for kind in ("bytes", "operations")}
+    row.update(bound_by=max(share, key=share.get), kernel_err_fp64=kernel_err,
+               plain_err_fp64=plain_err,
+               per_layer={n: dict(identity=r["ms"], downsample=d["ms"])
+                          for (n, *_), (_, r), (_, d) in zip(IDENTITY, per_block,
+                                                             per_downsample)},
+               downsample_blocks=ds_row)
+    return row
 
 
 def capture_stage_inputs(model, batch) -> dict:
@@ -811,6 +895,46 @@ def distance_kernel_path(feats, labels, counts, epss) -> dict:
                 abs_err_vs_exact=worst_exact,
                 ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, fma_sym_ms=fma_sym_ms, fma_dense_ms=fma_dense_ms)
+
+
+def fused_eval_fp32_path(dev: torch.device, batches) -> dict:
+    """The fp32 fused-eval forward: ``models.create(..., dtype=torch.float32,
+    fused_eval=True)`` (seed 0, channels-last) through ``api.extract_features``
+    on the first two batches of the main path, its 12 identity blocks a batch
+    in the fp32 kernel, against the unfused fp32 model with the same weights
+    (each embedding within FP32_REL of it, relative in norm: fp32 rounding of
+    the fold). Returns the launch count of the timed extract and both
+    extracts' seconds."""
+    kw = dict(num_features=0, num_parts=3, dtype=torch.float32)
+    plain = models.create("resnet50", **kw).reset_parameters(torch.Generator().manual_seed(0))
+    fused = models.create("resnet50", fused_eval=True, **kw)
+    fused.load_state_dict(plain.state_dict())
+    plain = plain.eval().to(dev, memory_format=torch.channels_last)
+    fused = fused.eval().to(dev, memory_format=torch.channels_last)
+    batches = batches[:2]
+    api.extract_features(fused, batches)  # warm-up: fold cache, cuDNN plans
+    api.extract_features(plain, batches)
+    torch.cuda.synchronize()
+    bottleneck.launches = 0
+    t0 = time.perf_counter()
+    f_fused, _, _, _ = api.extract_features(fused, batches)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    launches = bottleneck.launches
+    t0 = time.perf_counter()
+    f_plain, _, _, _ = api.extract_features(plain, batches)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    check(launches == 12 * len(batches), f"fp32 fused-eval extract launched the bottleneck "
+                                         f"kernel {launches} times, expected {12 * len(batches)}")
+    check(f_fused.dtype == torch.float32 and bool(torch.isfinite(f_fused).all()),
+          "fp32 fused-eval embeddings bad")
+    err = float(((f_fused - f_plain).norm(dim=-1) / f_plain.norm(dim=-1)).max())
+    print(f"fp32 fused-eval extract of {sum(len(b[0]) for b in batches)} images: "
+          f"{fused_s:.4f} s ({launches} block launches), unfused {plain_s:.4f} s; "
+          f"embeddings within {err:.2e} of the unfused model's")
+    check(err <= FP32_REL, f"fp32 fused-eval embeddings off the unfused model's by {err:.2e}")
+    return dict(launches=launches, fused_seconds=fused_s, unfused_seconds=plain_s, rel=err)
 
 
 def check_operand_conversion(dev: torch.device) -> None:
@@ -2661,7 +2785,7 @@ def main() -> int:
     del v_like, cols
     check_operand_conversion(dev)
     check_kernels_ragged(dev)
-    check_fp32_blocks(dev)
+    fp32_row = check_fp32_blocks(dev)
 
     # 3. Main path.
     batches, model, host_render_s = main_path_inputs(dev)
@@ -2766,6 +2890,8 @@ def main() -> int:
     path2 = fused_eval_path(fused, batches, feats, labels, counts)
 
     paired_extract_seconds(model, fused, batches)
+    # The fp32 fused-eval forward, its bottleneck count set to 0 before it.
+    path2_fp32 = fused_eval_fp32_path(dev, batches)
 
     # 8. The analytics from the distance kernel, and its times.
     dist_row = distance_kernel_path(feats, labels, counts, epss)
@@ -2832,6 +2958,24 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+    # The fp32 instance of B3 (ssg_bottleneck_f32): per batch of the path (12
+    # identity blocks); bound as three TF32 products; errors of max |ref|.
+    kernels.append({
+        "name": "fused_bottleneck_fp32", "route": "cuda",
+        "source": "ssg_tpu_torch/csrc/bottleneck.cu", "replaces": "ssg_tpu/ops/bottleneck.py:70",
+        "launches": path2_fp32["launches"],
+        "max_abs_err": fp32_row["abs_err"], "max_err": fp32_row["rel"],
+        "max_err_unit": "of max |ref|", "ms": fp32_row["ms"], "kernel_ms": fp32_row["ms"],
+        "plain_ms": fp32_row["plain_ms"], "ref_ms": fp32_row["plain_ms"],
+        "bound_ms": fp32_row["bound_ms"], "bound_by": fp32_row["bound_by"],
+        "bound_ms_fma": fp32_row["fma_ms"], "library_ms": fp32_row["library_ms"],
+        "max_abs_err_vs_fp64": fp32_row["kernel_err_fp64"],
+        "plain_max_abs_err_vs_fp64": fp32_row["plain_err_fp64"],
+        "per_layer_ms": fp32_row["per_layer"],
+        "downsample_blocks": {k: fp32_row["downsample_blocks"][k]
+                              for k in ("ms", "plain_ms", "library_ms", "bound_ms", "fma_ms")},
+        "fused_eval_fp32_extract": path2_fp32,
+    })
     kernels.append({
         "name": "pairwise_distance", "route": "cuda", "source": "ssg_tpu_torch/csrc/distance.cu",
         "replaces": "ssg_tpu/ops/distance.py:49", "launches": dist_row["launches"],

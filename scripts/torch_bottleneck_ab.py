@@ -6,6 +6,7 @@ Run from the repository root on a machine with a card and ``nvcc``:
 
     git show <rev>:ssg_tpu_torch/csrc/bottleneck.cu > .archive/bottleneck_old.cu
     python3 scripts/torch_bottleneck_ab.py --baseline .archive/bottleneck_old.cu
+    python3 scripts/torch_bottleneck_ab.py --dtype float32 --baseline .archive/bottleneck_old.cu
     python3 scripts/torch_bottleneck_ab.py --kernel l1 --baseline .archive/l1_old.cu
     python3 scripts/torch_bottleneck_ab.py --kernel distance --baseline .archive/distance_old.cu
 
@@ -21,7 +22,11 @@ card's name and power limit.
   block and the stage's first (downsample) block (stride 1 in layer1, 2 in
   layers 2-4), then the 12 identity blocks (2, 3, 5 and 2 in layers 1-4)
   and the 4 downsample blocks of a batch. Each line also gives each
-  version's host time a launch (the C call, tensor maps included).
+  version's host time a launch (the C call, tensor maps included). With
+  ``--dtype float32`` the same blocks run in fp32 through
+  ``ssg_bottleneck_f32`` (activations, weights and workspaces fp32), each
+  checked within ``FP32_REL`` of the largest output of the plain version in
+  true fp32.
 * ``l1`` and ``distance``: the path call, a symmetric one (N = 3368; the L1
   on a V-like sparse row-stochastic matrix against itself, the distance on
   unit-norm rows of width 2048 against themselves), then the general call at
@@ -59,13 +64,15 @@ DOWNSAMPLE = (("layer1", 64, 32, 64, 64, 256, 1), ("layer2", 64, 32, 256, 128, 5
               ("layer3", 32, 16, 512, 256, 1024, 2), ("layer4", 16, 8, 1024, 512, 2048, 2))
 BATCH = 128
 BF16_ULPS = 4  # kernel against the plain version, as in chip_smoke.py
+FP32_REL = 1e-4  # fp32 blocks: of max |ref|, as in chip_smoke.py
 L1_TOL = DIST_TOL = 1e-5  # of the row-sum / |x|^2 + |y|^2 scale, as in chip_smoke.py
 N = 3368  # the path's points a group
 
 
-def block(gen: np.random.Generator, c: int, cm: int, dev, cout: int | None = None):
-    """Folded-block weights, LeCun-scaled bf16 and small fp32 biases; with
-    ``cout``, a downsample block (``wd``, ``bd`` last)."""
+def block(gen: np.random.Generator, c: int, cm: int, dev, cout: int | None = None,
+          dtype: torch.dtype = torch.bfloat16):
+    """Folded-block weights, LeCun-scaled in ``dtype`` and small fp32 biases;
+    with ``cout``, a downsample block (``wd``, ``bd`` last)."""
     ds = cout is not None
     cout = c if cout is None else cout
     shapes = [(c, cm), (cm,), (3, 3, cm, cm), (cm,), (cm, cout), (cout,)]
@@ -74,7 +81,7 @@ def block(gen: np.random.Generator, c: int, cm: int, dev, cout: int | None = Non
     for shape in shapes:
         a = gen.normal(size=shape).astype(np.float32)
         if len(shape) > 1:
-            out.append(torch.from_numpy(a * np.prod(shape[:-1]) ** -0.5).to(dev, torch.bfloat16))
+            out.append(torch.from_numpy(a * np.prod(shape[:-1]) ** -0.5).to(dev, dtype))
         else:
             out.append(torch.from_numpy(a * 0.1).to(dev))
     return out
@@ -112,9 +119,10 @@ def median_ms(fns: dict, rounds: int, reps: int, host: dict | None = None) -> di
     return {k: statistics.median(v) for k, v in times.items()}
 
 
-def ab_bottleneck(libs: dict, dev, rounds: int, reps: int) -> None:
+def ab_bottleneck(libs: dict, dev, rounds: int, reps: int, dtype: torch.dtype) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     gen = np.random.default_rng(0)
+    f32 = dtype == torch.float32
     cases = [(f"{name} identity block", (BATCH, h, w, c), c, cm, c, 1, count)
              for name, h, w, c, cm, count in LAYERS]
     cases += [(f"{name} downsample block", (BATCH, h, w, c), c, cm, cout, s, 1)
@@ -122,30 +130,39 @@ def ab_bottleneck(libs: dict, dev, rounds: int, reps: int) -> None:
     totals = {kind: dict.fromkeys(libs, 0.0) for kind in ("identity", "downsample")}
     for label, shape, c, cm, cout, stride, count in cases:
         ds = "downsample" in label
-        x = torch.from_numpy(np.abs(gen.normal(size=shape)).astype(np.float32))
-        x = x.to(dev, torch.bfloat16)
-        ws = block(gen, c, cm, dev, cout if ds else None)
+        x = torch.from_numpy(np.abs(gen.normal(size=shape)).astype(np.float32)).to(dev, dtype)
+        ws = block(gen, c, cm, dev, cout if ds else None, dtype)
         ref = block_ref(x, *ws, stride=stride)
         out = torch.empty_like(ref)
         b, h, w = shape[:3]
+        # fp32: the workspaces y1, y2 and a downsample block's residual.
+        work = ([torch.empty((b, h, w, cm), dtype=dtype, device=dev),
+                 torch.empty(ref.shape[:3] + (cm,), dtype=dtype, device=dev),
+                 torch.empty_like(ref) if ds else None] if f32 else [])
 
         def run(lib):
             ptrs = [t.data_ptr() for t in ws] + ([] if ds else [None, None])
+            ptrs += [out.data_ptr()] + [None if t is None else t.data_ptr() for t in work]
+            fn = lib.ssg_bottleneck_f32 if f32 else lib.ssg_bottleneck
 
             def go():
-                err = lib.ssg_bottleneck(x.data_ptr(), *ptrs, out.data_ptr(), b, h, w, c, cm,
-                                         cout, stride, stream)
+                err = fn(x.data_ptr(), *ptrs, b, h, w, c, cm, cout, stride, stream)
                 if err:
-                    raise RuntimeError(f"ssg_bottleneck: CUDA error {err}")
+                    raise RuntimeError(f"{fn.__name__}: CUDA error {err}")
             return go
 
         for k, lib in libs.items():
             out.zero_()
             run(lib)()
             torch.cuda.synchronize()
-            ulps = bf16_ulp_error(out, ref)
-            if ulps > BF16_ULPS:
-                raise RuntimeError(f"{label} ({k}): {ulps:.0f} ulps from the plain version")
+            if f32:
+                rel = float((out - ref).abs().max()) / float(ref.abs().max())
+                if rel > FP32_REL:
+                    raise RuntimeError(f"{label} ({k}): rel {rel:.2e} from the plain version")
+            else:
+                ulps = bf16_ulp_error(out, ref)
+                if ulps > BF16_ULPS:
+                    raise RuntimeError(f"{label} ({k}): {ulps:.0f} ulps from the plain version")
         host = {}
         med = median_ms({k: run(lib) for k, lib in libs.items()}, rounds, reps, host)
         kind = "downsample" if ds else "identity"
@@ -155,7 +172,7 @@ def ab_bottleneck(libs: dict, dev, rounds: int, reps: int) -> None:
               ", ".join(f"{k} {v:.4f} ms (host {host[k] * 1e3:.1f} us)" for k, v in med.items()) +
               f"; current / baseline {med['current'] / med['baseline']:.3f}")
     for kind, n in (("identity", 12), ("downsample", 4)):
-        print(f"{n} {kind} blocks a batch: " +
+        print(f"{n} {kind} blocks a batch ({dtype}): " +
               ", ".join(f"{k} {v:.4f} ms" for k, v in totals[kind].items()))
 
 
@@ -238,6 +255,8 @@ def main() -> int:
     ap.add_argument("--kernel", choices=("bottleneck", "l1", "distance"), default="bottleneck")
     ap.add_argument("--baseline", type=Path, required=True,
                     help="another version of csrc/<kernel>.cu")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                    help="the bottleneck's activations and weights")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=20, help="launches a timing")
     args = ap.parse_args()
@@ -251,7 +270,7 @@ def main() -> int:
     ok = True
     if args.kernel == "bottleneck":
         ab_bottleneck({k: bottleneck.bind(_build.load(src)) for k, src in sources.items()},
-                      dev, args.rounds, args.reps)
+                      dev, args.rounds, args.reps, getattr(torch, args.dtype))
     else:
         ok = ab_pairwise(args.kernel, {k: bind_pairwise(args.kernel, src)
                                        for k, src in sources.items()}, dev, args.rounds, args.reps)

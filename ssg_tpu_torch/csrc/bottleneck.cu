@@ -20,7 +20,7 @@
 // What it keeps from the TPU kernel: y1 and y2 never reach device memory.
 // A block reads its x tile (plus a one-pixel halo) and writes its out tile
 // once. That holds for bf16; an fp32 block (ssg_bottleneck_f32, at the end)
-// is a run of plain fp32 FMA launches with y1 and y2 in device memory.
+// is a run of 3xTF32 tensor-core launches with y1 and y2 in device memory.
 //
 // Bound on an H100 at the ResNet-50 path shapes (batch 128): every block
 // does 17 Cm^2 multiply-adds a pixel, 36.5 GFLOP, 36.9 us on the bf16 tensor
@@ -839,13 +839,62 @@ bool encode_x(CUtensorMap* map, const void* x, int B, int H, int W, int C, int b
 }
 
 // fp32 blocks. The TPU kernel takes fp32 activations too (its products take
-// x.dtype), and mma.sync has no fp32 form, so an fp32 block is a run of
-// conv_f32_kernel launches, a tiled implicit GEMM on the fp32 FMA units: y1,
-// y2 and a downsample block's residual pass through device memory. Right and
-// simple first: no path runs fp32 blocks at speed.
-constexpr int F_BM = 64;  // output pixels of a block
-constexpr int F_BN = 64;  // output channels of a block
-constexpr int F_BK = 16;  // K per staged chunk
+// x.dtype), and an fp32 block here is a run of conv_f32_kernel launches (y1,
+// y2 and a downsample block's residual pass through device memory), each
+//
+//   out[m, n] = act(sum_k A[m, k] w[k, n] + bias[n] (+ res[m, n]))
+//
+// with output pixel m = (b, ho, wo), k = (dr R + dc) Cin + ci and A[m, k] =
+// in[b, ho S + dr - R / 2, wo S + dc - R / 2, ci], zero outside the image.
+//
+// Bound on an H100: operations. At the path shapes (batch 128) an identity
+// block does 36.5 GFLOP: 0.545 ms on the fp32 FMA pipes (67 TFLOP/s), 0.221
+// ms as three TF32 tensor-core products (495 TFLOP/s), against 0.160 ms to
+// read x and write out in fp32 at layer1.
+//
+// Design: distance.cu's 3xTF32 machinery as an implicit GEMM. A block owns
+// 128 output pixels x BN output channels (BN = 128; 64 where Cout <= 64,
+// layer1's conv1 and conv2, so half the tile is not masked away, and where
+// K is 4 slabs or fewer, so two blocks an SM overlap one tile's epilogue
+// with the other's slabs: 1.07-1.15x on layers 1-2 in turns) and walks
+// K in 32-deep slabs through a 4-slot cp.async ring, one block barrier a
+// slab. A slab's A rows are gathered by 16-byte pieces, 4 channels of one
+// tap of one pixel (Cin % 4 == 0, so a piece never crosses a tap); pad
+// pixels and the K tail load zeros by src-size 0. Each tile row's (image,
+// h, w) origin is computed once, into a shared table. A is stored K-major,
+// rows padded to 36 floats, so ldmatrix gives the tf32 A fragments as
+// they are; w (K, Cout) keeps N contiguous, rows padded to BN + 8 floats
+// (= 8 mod 32 words), so a B fragment's 32-bit loads fall on 32 distinct
+// banks (those rows by cp.async too: in turns they beat one thread's
+// tensor-map box a slab by 1.5-2.7 % on layers 2-4). Eight warps each
+// hold 64 x BN / 4 outputs; every fragment is split by cvt.rna.tf32 into
+// hi and lo, and three mma.sync m16n8k8 a fragment pair (lo.hi, hi.lo,
+// hi.hi) go into a per-slab partial sum that an fp32 add folds into the
+// accumulator (the tensor cores' accumulation does not round to nearest;
+// see distance.cu). The epilogue stages the tile in the ring and stores
+// it as coalesced 16-byte rows, adding the bias, then the residual, then
+// the ReLU. BN = 128 takes one block an SM (4 x 35 KB of ring, ~220
+// registers), BN = 64 two (127). No K split: layer4's convolutions have
+// 128-512 tiles for 132 SMs.
+constexpr int F_BM = 128;               // output pixels of a block
+constexpr int F_BK = 32;                // K per ring slab
+constexpr int F_STAGES = 4;             // cp.async ring slots
+constexpr int F_LDA = F_BK + 4;         // A slab row stride (144 B): ldmatrix on distinct banks
+constexpr int F_WM = 64;                // rows a warp: 2 warps down the tile, 4 across
+constexpr int F_MT = F_WM / 16;         // m16 fragments a warp
+constexpr int F_A_FLOATS = F_BM * F_LDA;
+
+template <int BN>
+struct TileF32 {
+  static constexpr int LDB = BN + 8;    // B slab row stride in floats: = 8 (mod 32) words
+  static constexpr int WN = BN / 4;     // columns a warp
+  static constexpr int NT = WN / 8;     // n8 fragments a warp
+  static constexpr int SLOT = F_A_FLOATS + F_BK * LDB;
+  static constexpr int LDT = BN + 8;    // staged output row stride: float2 stores on distinct banks
+  static constexpr int SMEM_BYTES = F_STAGES * SLOT * 4;  // 143,360 (BN 128) / 110,592 (BN 64)
+  static constexpr int MIN_BLOCKS = BN == 64 ? 2 : 1;
+  static_assert(F_BM * LDT <= F_STAGES * SLOT, "the output tile is staged in the ring");
+};
 
 struct ConvF32 {
   const float* in;    // (B, H, W, Cin) NHWC
@@ -853,102 +902,252 @@ struct ConvF32 {
   const float* bias;  // (Cout,)
   const float* res;   // (B, Ho, Wo, Cout) added before the ReLU, or nullptr
   float* out;         // (B, Ho, Wo, Cout)
-  int B, H, W, Cin, Ho, Wo, Cout, R, S;
+  int B, H, W, Cin, Ho, Wo, Cout, S;
   bool relu;
 };
 
-// out[m, n] = act(sum_k A[m, k] w[k, n] + bias[n] + res[m, n]), where output
-// pixel m = (b, ho, wo), k = (dr * R + dc) * Cin + ci and A[m, k] =
-// in[b, ho * S + dr - R / 2, wo * S + dc - R / 2, ci], zero outside the image.
-// 256 threads hold a 64 x 64 tile, 4 x 4 outputs each, strided by 16.
-__global__ void __launch_bounds__(THREADS) conv_f32_kernel(const ConvF32 p) {
-  __shared__ float As[F_BK][F_BM + 4];
-  __shared__ float Bs[F_BK][F_BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int64_t M = static_cast<int64_t>(p.B) * p.Ho * p.Wo;
-  const int K = p.R * p.R * p.Cin;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * F_BM;
-  const int n0 = blockIdx.y * F_BN;
-  const int pad = p.R / 2;
+// 16 bytes global -> shared; zero-filled when !valid (src is then not read).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
+}
 
-  // This thread stages A row a_row, columns a_k .. a_k + 3 of each chunk.
-  const int a_row = tid / 4;
-  const int a_k = tid % 4 * 4;
-  const int64_t am = m0 + a_row;
-  int64_t a_img = -1;  // NHWC offset of image b, or -1 past the last pixel
-  int a_h = 0, a_w = 0;
-  if (am < M) {
-    const int wo = static_cast<int>(am % p.Wo);
-    const int64_t t = am / p.Wo;
-    a_h = static_cast<int>(t % p.Ho) * p.S - pad;
-    a_w = wo * p.S - pad;
-    a_img = t / p.Ho * p.H * p.W;
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+// v = hi + lo, both tf32; lo is rounded from the exact fp32 remainder.
+__device__ __forceinline__ void split(uint32_t v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(__uint_as_float(v));
+  lo = tf32(__uint_as_float(v) - __uint_as_float(hi));
+}
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Slab kt of the block's A rows and w rows into ring slot `slot`. Thread tid
+// copies A rows tid / 8 + 32 i at k tid % 8 * 4 (8 threads read a row's 128
+// bytes), and w rows of BN / 4 pieces, a row's neighbouring threads on
+// neighbouring addresses.
+template <int BN, int R>
+__device__ __forceinline__ void load_slab_f32(const ConvF32& p, const int4* rows, float* slot,
+                                              int kt, int K, int n0, int tid) {
+  using T = TileF32<BN>;
+  const int a_r = tid >> 3;
+  const int k = kt * F_BK + (tid & 7) * 4;
+  int tap = 0, ci = k;
+  if constexpr (R > 1) {
+    tap = k / p.Cin;
+    ci = k - tap * p.Cin;
   }
-  // ... and B row b_row, columns b_n .. b_n + 3.
-  const int b_row = tid / 16;
-  const int b_n = tid % 16 * 4;
-
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += F_BK) {
+  const int dr = tap / R, dc = tap % R;
+  const bool k_valid = k < K;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int k = k0 + a_k + e;
-      float v = 0.f;
-      if (a_img >= 0 && k < K) {
-        const int tap = k / p.Cin;
-        const int h = a_h + tap / p.R;
-        const int w = a_w + tap % p.R;
-        if (h >= 0 && h < p.H && w >= 0 && w < p.W)
-          v = p.in[(a_img + static_cast<int64_t>(h) * p.W + w) * p.Cin + k - tap * p.Cin];
-      }
-      As[a_k + e][a_row] = v;
-      const int k_b = k0 + b_row;
-      const int n = n0 + b_n + e;
-      Bs[b_row][b_n + e] = k_b < K && n < p.Cout ? p.w[static_cast<int64_t>(k_b) * p.Cout + n] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < F_BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int i = 0; i < F_BM / 32; ++i) {
+    const int r = a_r + 32 * i;
+    const int4 o = rows[r];  // (pixel of (b, 0, 0), h0, w0)
+    const int h = o.y + dr, w = o.z + dc;
+    const bool valid = k_valid && h >= 0 && h < p.H && w >= 0 && w < p.W;
+    const float* src = p.in + (static_cast<int64_t>(o.x) + static_cast<int64_t>(h) * p.W + w) *
+                                  p.Cin + ci;
+    cp_async16(slot + r * F_LDA + (tid & 7) * 4, valid ? src : p.in, valid);
   }
-
+  constexpr int PER_ROW = BN / 4;
+  constexpr int STEP = THREADS / PER_ROW;  // w rows a pass
+  const int b_r = tid / PER_ROW, b_n = tid % PER_ROW * 4;
+  const bool n_valid = n0 + b_n < p.Cout;
+  float* Bs = slot + F_A_FLOATS;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= p.Cout) continue;
-      float v = acc[i][j] + p.bias[n];
-      if (p.res != nullptr) v += p.res[m * p.Cout + n];
-      p.out[m * p.Cout + n] = p.relu ? fmaxf(v, 0.f) : v;
-    }
+  for (int i = 0; i < F_BK / STEP; ++i) {
+    const int kr = kt * F_BK + b_r + STEP * i;
+    const bool valid = n_valid && kr < K;
+    cp_async16(Bs + (b_r + STEP * i) * T::LDB + b_n,
+               valid ? p.w + static_cast<int64_t>(kr) * p.Cout + n0 + b_n : p.w, valid);
   }
 }
 
+template <int BN, int R>
+__global__ void __launch_bounds__(THREADS, TileF32<BN>::MIN_BLOCKS)
+conv_f32_kernel(const ConvF32 p) {
+  using T = TileF32<BN>;
+  extern __shared__ __align__(16) float fsm[];
+  __shared__ int4 rows[F_BM];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp / 4, wn = warp % 4;
+  const int tiles_n = (p.Cout + BN - 1) / BN;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.x / tiles_n) * F_BM;
+  const int n0 = static_cast<int>(blockIdx.x % tiles_n) * BN;
+  const int64_t M = static_cast<int64_t>(p.B) * p.Ho * p.Wo;
+  const int K = R * R * p.Cin;
+  const int kt_end = (K + F_BK - 1) / F_BK;
+
+  if (tid < F_BM) {
+    const int64_t m = m0 + tid;
+    int4 o = make_int4(0, -(1 << 30), 0, 0);  // past the last pixel: every tap reads zeros
+    if (m < M) {
+      const int wo = static_cast<int>(m % p.Wo);
+      const int64_t t = m / p.Wo;
+      o.x = static_cast<int>(t / p.Ho) * p.H * p.W;
+      o.y = static_cast<int>(t % p.Ho) * p.S - R / 2;
+      o.z = wo * p.S - R / 2;
+    }
+    rows[tid] = o;
+  }
+  __syncthreads();
+
+  float acc[F_MT][T::NT][4];
+#pragma unroll
+  for (int i = 0; i < F_MT; ++i)
+#pragma unroll
+    for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < F_STAGES - 1; ++s) {
+    if (s < kt_end) load_slab_f32<BN, R>(p, rows, fsm + s * T::SLOT, s, K, n0, tid);
+    cp_async_commit();
+  }
+
+  // ldmatrix row of this lane in an A slab (as distance.cu's): matrices
+  // rows 0-7 / 8-15 at k 0-3, then at k 4-7 = a0..a3 of m16n8k8. A B
+  // fragment is w[k = tig (+4)][n = gid] of the lane's n8 column group.
+  const int gid = lane >> 2, tig = lane & 3;
+  const uint32_t a_lane =
+      smem_u32(fsm + (wm * F_WM + (lane & 7) + ((lane >> 3) & 1) * 8) * F_LDA + (lane >> 4) * 4);
+  const float* b_lane = fsm + F_A_FLOATS + tig * T::LDB + wn * T::WN + gid;
+
+  for (int kt = 0; kt < kt_end; ++kt) {
+    cp_async_wait<F_STAGES - 2>();
+    __syncthreads();
+    // Refill the slot that slab kt - 1 used: every thread is past it.
+    const int nk = kt + F_STAGES - 1;
+    if (nk < kt_end) load_slab_f32<BN, R>(p, rows, fsm + (nk % F_STAGES) * T::SLOT, nk, K, n0, tid);
+    cp_async_commit();
+
+    const int slot = (kt % F_STAGES) * T::SLOT;
+    float part[F_MT][T::NT][4];
+#pragma unroll
+    for (int i = 0; i < F_MT; ++i)
+#pragma unroll
+      for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[i][j][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < F_BK; kk += 8) {
+      uint32_t bhi[T::NT][2], blo[T::NT][2];
+#pragma unroll
+      for (int j = 0; j < T::NT; ++j) {
+        const float* b = b_lane + slot + kk * T::LDB + j * 8;
+        split(__float_as_uint(b[0]), bhi[j][0], blo[j][0]);
+        split(__float_as_uint(b[4 * T::LDB]), bhi[j][1], blo[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < F_MT; ++i) {
+        uint32_t a[4], ahi[4], alo[4];
+        ldsm_x4(a, a_lane + (slot + i * 16 * F_LDA + kk) * 4);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) split(a[q], ahi[q], alo[q]);
+#pragma unroll
+        for (int j = 0; j < T::NT; ++j) {
+          mma_tf32(part[i][j], alo, bhi[j][0], bhi[j][1]);
+          mma_tf32(part[i][j], ahi, blo[j][0], blo[j][1]);
+          mma_tf32(part[i][j], ahi, bhi[j][0], bhi[j][1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < F_MT; ++i)
+#pragma unroll
+      for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] += part[i][j][c];
+  }
+
+  // Stage the tile in the ring: fragment element c of (i, j) is row gid
+  // (+8 for c >= 2), column 2 tig + (c & 1).
+  cp_async_wait<0>();
+  __syncthreads();
+  float* tile = fsm;
+#pragma unroll
+  for (int i = 0; i < F_MT; ++i)
+#pragma unroll
+    for (int j = 0; j < T::NT; ++j) {
+      const int r = wm * F_WM + i * 16 + gid;
+      const int c = wn * T::WN + j * 8 + 2 * tig;
+      *reinterpret_cast<float2*>(tile + r * T::LDT + c) = make_float2(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<float2*>(tile + (r + 8) * T::LDT + c) =
+          make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+  __syncthreads();
+  constexpr int C4 = BN / 4;
+  for (int idx = tid; idx < F_BM * C4; idx += THREADS) {
+    const int r = idx / C4;
+    const int c = idx % C4 * 4;
+    const int64_t m = m0 + r;
+    const int n = n0 + c;
+    if (m >= M || n >= p.Cout) continue;
+    float4 v = *reinterpret_cast<const float4*>(tile + r * T::LDT + c);
+    const float4 b = *reinterpret_cast<const float4*>(p.bias + n);
+    v.x += b.x;
+    v.y += b.y;
+    v.z += b.z;
+    v.w += b.w;
+    if (p.res != nullptr) {
+      const float4 q = *reinterpret_cast<const float4*>(p.res + m * p.Cout + n);
+      v.x += q.x;
+      v.y += q.y;
+      v.z += q.z;
+      v.w += q.w;
+    }
+    if (p.relu) {
+      v.x = fmaxf(v.x, 0.f);
+      v.y = fmaxf(v.y, 0.f);
+      v.z = fmaxf(v.z, 0.f);
+      v.w = fmaxf(v.w, 0.f);
+    }
+    *reinterpret_cast<float4*>(p.out + m * p.Cout + n) = v;
+  }
+}
+
+template <int BN, int R>
+cudaError_t launch_conv_f32(const ConvF32& p, int64_t tiles_m, cudaStream_t stream) {
+  const int64_t blocks = tiles_m * ((p.Cout + BN - 1) / BN);
+  if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
+  constexpr int bytes = TileF32<BN>::SMEM_BYTES;
+  const cudaError_t err = cudaFuncSetAttribute(conv_f32_kernel<BN, R>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  conv_f32_kernel<BN, R><<<static_cast<unsigned>(blocks), THREADS, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// R is 1 or 3; Cin and Cout multiples of 4; every pointer 16-byte aligned.
 cudaError_t conv_f32(const float* in, const float* w, const float* bias, const float* res,
                      float* out, int B, int H, int W, int Cin, int Cout, int R, int S, bool relu,
                      cudaStream_t stream) {
   const ConvF32 p{in, w, bias, res, out, B, H, W, Cin, (H - 1) / S + 1, (W - 1) / S + 1, Cout,
-                  R, S, relu};
-  const int64_t tiles = (static_cast<int64_t>(B) * p.Ho * p.Wo + F_BM - 1) / F_BM;
-  if (tiles > 2147483647LL) return cudaErrorInvalidConfiguration;
-  conv_f32_kernel<<<dim3(static_cast<unsigned>(tiles), (Cout + F_BN - 1) / F_BN), THREADS, 0,
-                    stream>>>(p);
-  return cudaGetLastError();
+                  S, relu};
+  const int64_t tiles_m = (static_cast<int64_t>(B) * p.Ho * p.Wo + F_BM - 1) / F_BM;
+  if (Cout <= 64 || R * R * Cin <= 4 * F_BK)
+    return R == 1 ? launch_conv_f32<64, 1>(p, tiles_m, stream)
+                  : launch_conv_f32<64, 3>(p, tiles_m, stream);
+  return R == 1 ? launch_conv_f32<128, 1>(p, tiles_m, stream)
+                : launch_conv_f32<128, 3>(p, tiles_m, stream);
 }
 
 // Blocks an SM of a launch with this layout.
@@ -1057,8 +1256,10 @@ extern "C" int ssg_bottleneck(const void* x, const void* w1, const float* b1, co
 
 // The same block in fp32: every tensor fp32, NHWC-contiguous, plus device
 // workspaces y1 (B, H, W, Cm), y2 (B, Ho, Wo, Cm) and, for a downsample
-// block, res (B, Ho, Wo, Cout). Launches conv_f32_kernel three times (four
-// for a downsample block) on `stream`; returns the first CUDA error, or 0.
+// block, res (B, Ho, Wo, Cout). C, Cm, Cout multiples of 4 and every
+// pointer 16-byte aligned (the kernel's 16-byte copies and stores), else
+// cudaErrorInvalidValue. Launches conv_f32_kernel three times (four for a
+// downsample block) on `stream`; returns the first CUDA error, or 0.
 extern "C" int ssg_bottleneck_f32(const float* x, const float* w1, const float* b1,
                                   const float* w2, const float* b2, const float* w3,
                                   const float* b3, const float* wd, const float* bd, float* out,
@@ -1066,8 +1267,13 @@ extern "C" int ssg_bottleneck_f32(const float* x, const float* w1, const float* 
                                   int64_t W, int64_t C, int64_t Cm, int64_t Cout, int64_t stride,
                                   void* stream) {
   const bool ds = wd != nullptr;
+  auto misaligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 != 0; };
   if ((stride != 1 && stride != 2) || (!ds && (stride != 1 || Cout != C)) || B <= 0 || H <= 0 ||
-      W <= 0 || C <= 0 || Cm <= 0 || Cout <= 0 || B * H * W > 2147483647LL)
+      W <= 0 || C <= 0 || Cm <= 0 || Cout <= 0 || C % 4 || Cm % 4 || Cout % 4 ||
+      B * H * W > 2147483647LL || misaligned(x) || misaligned(w1) || misaligned(b1) ||
+      misaligned(w2) || misaligned(b2) || misaligned(w3) || misaligned(b3) || misaligned(out) ||
+      misaligned(y1) || misaligned(y2) ||
+      (ds && (misaligned(wd) || misaligned(bd) || misaligned(res))))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   const int b = static_cast<int>(B), h = static_cast<int>(H), w = static_cast<int>(W);

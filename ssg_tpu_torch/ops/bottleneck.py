@@ -10,7 +10,8 @@ activations of type ``x.dtype`` with fp32 accumulation:
 
 On the card it is the hand-written CUDA source ``csrc/bottleneck.cu``: for
 bf16 one fused kernel that keeps y1 and y2 in shared memory, for fp32 a run
-of plain fp32 kernels. ``bottleneck_ref`` is its plain PyTorch version: the
+of implicit-GEMM launches at fp32 accuracy on the TF32 tensor cores
+(3xTF32). ``bottleneck_ref`` is its plain PyTorch version: the
 CPU runs it, and the kernels are held against it on the card.
 Public layouts are the JAX package's: NHWC ``x``, w1 ``(C, Cm)``, w2
 ``(3, 3, Cm, Cm)`` (HWIO), w3 ``(Cm, C)``, fp32 biases.
@@ -127,7 +128,7 @@ def launch_block(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, stride: int = 1) -
 
     ``x`` is NHWC-contiguous (a channels-last NCHW tensor permuted to NHWC
     is), bf16 (one launch of the fused kernel) or fp32 (``ssg_bottleneck_f32``:
-    three launches of the fp32 kernel, four with a downsample, through
+    three launches of the 3xTF32 kernel, four with a downsample, through
     workspaces in device memory). Weights are cast to ``x.dtype`` (a no-op
     for folded weights) and must then be contiguous; biases are fp32.
     """

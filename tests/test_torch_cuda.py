@@ -202,12 +202,19 @@ def test_bottleneck_kernel_small_batch_matches_ref(gen, cuda, b, h, w, c, cm):
 
 # fp32 blocks (the fp32 kernel, y1 and y2 through device memory) against the
 # plain version in true fp32: sums in another order, within 1e-4 of the
-# largest output. A 3-block stage also runs the downsample block.
+# largest output. A 3-block stage also runs the downsample block. The
+# kernel's tiles are 128 pixels x 128 channels (64 where Cout <= 64 or K <=
+# 128) over 32-deep K slabs: C 40 / Cm 24 put slab edges inside a tap of the
+# 3x3 (K = 40, 216, 24); layer1's widths take the 64-wide tiles; B H W of
+# 105, 129 and 130 pixels is ragged against 128.
 FP32_REL = 1e-4
 
 
 @pytest.mark.parametrize("b,h,w,c,cm", [(3, 5, 7, 32, 8), (2, 9, 13, 40, 8),
-                                        (2, 16, 8, 1024, 256), (1, 8, 4, 2048, 512)])
+                                        (2, 16, 8, 1024, 256), (1, 8, 4, 2048, 512),
+                                        (2, 9, 13, 40, 24), (1, 7, 5, 40, 24),
+                                        (2, 64, 32, 256, 64), (1, 43, 3, 64, 16),
+                                        (2, 5, 13, 72, 96), (3, 5, 7, 136, 40)])
 def test_bottleneck_kernel_fp32_matches_ref(gen, cuda, b, h, w, c, cm):
     x = _act(gen, (b, h, w, c), cuda).float()
     ws = tuple(t.float() for t in _weights(gen, c, cm, c, False, cuda))
@@ -233,6 +240,51 @@ def test_stage_kernel_fp32_matches_ref(gen, cuda, stride, h, w, c, cm):
     ref = stage_ref(x, blocks, stride)
     assert out.shape == ref.shape and out.dtype == torch.float32
     assert float((out - ref).abs().max()) <= FP32_REL * float(ref.abs().max())
+
+
+# The fp32 downsample block alone: its stride-2 3x3 and strided 1x1 residual
+# at the path's widths (layers 2-4, small maps), odd maps at stride 2, and
+# layer1's stride-1 block.
+@pytest.mark.parametrize("b,stride,h,w,c,cm,cout", [(2, 2, 16, 8, 256, 128, 512),
+                                                    (2, 2, 16, 8, 512, 256, 1024),
+                                                    (1, 2, 8, 4, 1024, 512, 2048),
+                                                    (3, 2, 9, 7, 24, 8, 32),
+                                                    (1, 2, 13, 11, 40, 16, 72),
+                                                    (2, 1, 16, 8, 64, 64, 256)])
+def test_downsample_block_fp32_matches_ref(gen, cuda, b, stride, h, w, c, cm, cout):
+    x = _act(gen, (b, h, w, c), cuda).float()
+    blk = tuple(t.float() for t in _weights(gen, c, cm, cout, True, cuda))
+    before = stage_mod.launches
+    out = fused_bottleneck_stage(x, [blk], stride)
+    torch.cuda.synchronize()
+    assert stage_mod.launches == before + 1
+    ref = stage_ref(x, [blk], stride)
+    assert out.shape == ref.shape == (b, (h - 1) // stride + 1, (w - 1) // stride + 1, cout)
+    assert out.dtype == torch.float32
+    assert float((out - ref).abs().max()) <= FP32_REL * float(ref.abs().max())
+
+
+# The fp32 kernel's ring (4 slots, one block barrier a slab) and its
+# epilogue staged in the ring: a slot refilled too early, or the tile
+# staged before every warp left the last slab, would change bits from
+# launch to launch. Three shapes, 50 launches each, the same bits.
+@pytest.mark.parametrize("b,stride,h,w,c,cm,cout", [(8, 1, 32, 16, 256, 64, 256),
+                                                    (8, 2, 16, 8, 512, 256, 1024),
+                                                    (4, 1, 8, 4, 2048, 512, 2048)])
+def test_fp32_kernel_same_bits_over_many_launches(gen, cuda, b, stride, h, w, c, cm, cout):
+    ds = stride != 1 or cout != c
+    x = _act(gen, (b, h, w, c), cuda).float()
+    blk = tuple(t.float() for t in _weights(gen, c, cm, cout, ds, cuda))
+    if ds:
+        run, ref = (lambda: fused_bottleneck_stage(x, [blk], stride)), stage_ref(x, [blk], stride)
+    else:
+        run, ref = (lambda: fused_bottleneck(x, *blk)), bottleneck_ref(x, *blk)
+    first = run()
+    torch.cuda.synchronize()
+    assert float((first - ref).abs().max()) <= FP32_REL * float(ref.abs().max())
+    outs = [run() for _ in range(50)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs)
 
 
 @pytest.mark.parametrize("stride,h,w,c,cm", [(1, 16, 8, 16, 8), (2, 16, 8, 16, 8),
