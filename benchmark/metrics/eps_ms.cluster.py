@@ -1,0 +1,15 @@
+"""Stream ms a feature group from eps selection's first launch to its last
+(the rho-quantile by bisection over the re-ranked matrix): the CUDA events
+of the program's ``cluster.eps`` spans in the traced pass, over their
+number. Silent where the program records no spans or their events."""
+
+
+def read(info: dict):
+    try:
+        from ssg_tpu_torch.utils.profiling import recorded
+    except ImportError:  # a program without spans
+        return None
+    rec = recorded()
+    groups = len(rec.of("cluster.eps")) if rec is not None else 0
+    ms = rec.device_ms("cluster.eps") if groups else None
+    return ms / groups if ms is not None else None

@@ -1,0 +1,13 @@
+"""Host ms a train step spent in the optimizer step (and the OIM table's
+copy): the program's ``train.optimizer`` spans of the traced epoch over
+its ``train.step`` spans. Silent where the program records no spans."""
+
+
+def read(info: dict):
+    try:
+        from ssg_tpu_torch.utils.profiling import recorded
+    except ImportError:  # a program without spans
+        return None
+    rec = recorded()
+    steps = len(rec.of("train.step")) if rec is not None else 0
+    return rec.host_ms("train.optimizer") / steps if steps else None

@@ -17,9 +17,10 @@ with the most device time and the device time by kind of kernel;
 block recomputed in the backward pass).
 Otherwise it prints, after a warm-up:
 
-* device time of each stage of ``cluster_groups`` per group (CUDA events,
-  median of 5): distance, re-rank encoding (top-k, masks, 0/1 products,
-  query expansion), the L1 Jaccard, eps, DBSCAN;
+* device time of each stage of ``cluster_groups`` per group, read from
+  the stream times of its spans (``utils.profiling``) in one real call:
+  distance, re-rank encoding (top-k, masks, 0/1 products, query
+  expansion), the L1 Jaccard, eps, DBSCAN;
 * host time of ``extract_features`` and of ``cluster_groups``;
 * a ``torch.profiler`` window over one extract + ``cluster_groups``: the
   kernels with the most device time, the device's busy and idle share of
@@ -33,7 +34,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -45,30 +45,26 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from chip_smoke import (ANALYTICS, K1, K2, LAMBDA, MIN_SAMPLES, RHO,  # noqa: E402
-                        main_path_inputs, path_model, pk_batch)
+from chip_smoke import ANALYTICS, main_path_inputs, path_model, pk_batch  # noqa: E402
 from ssg_tpu_torch import api, models, resolve_device  # noqa: E402
 from ssg_tpu_torch.data import datasets  # noqa: E402
 from ssg_tpu_torch.train.schedule import make_optimizer  # noqa: E402
 from ssg_tpu_torch.train.trainer import make_train_step  # noqa: E402
-from ssg_tpu_torch.cluster import dbscan, select_eps  # noqa: E402
-from ssg_tpu_torch.ops.distance import pairwise_distance  # noqa: E402
-from ssg_tpu_torch.ops.rerank import _encode, _re_ranking_impl  # noqa: E402
+from ssg_tpu_torch.utils import profiling  # noqa: E402
+
+# Each stage's spans in ``cluster_groups`` (their stream times add up).
+STAGES = {"distance": ("cluster.dist",),
+          "encode": ("rerank.topk", "rerank.expand", "rerank.encode", "rerank.qe"),
+          "l1_jaccard": ("rerank.l1",), "eps": ("cluster.eps",), "dbscan": ("cluster.dbscan",)}
 
 
-def device_ms(fn, reps: int = 5):
-    """(median device ms over ``reps`` calls, last result)."""
-    times, out = [], None
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        out = fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times), out
+def stage_ms(groups: int) -> dict:
+    """{stage: [stream ms of group 0, 1, ...]} from the newest recorded
+    ``cluster_groups`` call's spans."""
+    spans = profiling.recorded().spans
+    return {stage: [sum(s.device_ms for s in spans if s.name in names and s.key == g)
+                    for g in range(groups)]
+            for stage, names in STAGES.items()}
 
 
 def device_kernels(prof) -> list:
@@ -169,18 +165,10 @@ def main() -> int:
     api.cluster_groups(feats, **ANALYTICS)
     torch.cuda.synchronize()
 
-    stages = {k: [] for k in ("distance", "encode", "l1_jaccard", "eps", "dbscan")}
-    for g in range(feats.shape[0]):
-        t, original = device_ms(lambda: pairwise_distance(feats[g]))
-        stages["distance"].append(t)
-        t, _ = device_ms(lambda: _encode(original, K1, K2))
-        t_rerank, dist = device_ms(lambda: _re_ranking_impl(original, K1, K2, LAMBDA))
-        stages["encode"].append(t)
-        stages["l1_jaccard"].append(t_rerank - t)
-        t, eps = device_ms(lambda: select_eps(dist, RHO))
-        stages["eps"].append(t)
-        t, _ = device_ms(lambda: dbscan(dist, eps, MIN_SAMPLES))
-        stages["dbscan"].append(t)
+    with profiling.record_spans():
+        api.cluster_groups(feats, **ANALYTICS)
+    torch.cuda.synchronize()
+    stages = stage_ms(feats.shape[0])
     for name, ts in stages.items():
         print(f"{name:>11}: " + ", ".join(f"{t:.3f}" for t in ts) + " ms (groups 0-2)")
 

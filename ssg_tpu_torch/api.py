@@ -7,6 +7,12 @@ Counterpart of ``ssg_tpu/api.py``: ``extract_features``, ``re_ranking``,
 unless ``device="cpu"`` is given (``_device.py``). Hosts see uint8 batches
 in and numpy labels and metrics out. A model is an ``nn.Module`` holding
 its own weights, where the JAX package passes ``(model, variables)``.
+
+``extract_features`` and ``cluster_groups`` open the spans of
+``utils.profiling`` (the JAX package's ``named_scope`` per stage): one
+``extract.batch`` a batch and ``extract.gather``; per group
+``cluster.dist``, ``cluster.rerank``, ``cluster.eps`` and
+``cluster.dbscan``, each with its stream time, then ``cluster.readback``.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from ssg_tpu_torch.ops.rerank import _re_ranking_impl, re_ranking
 from ssg_tpu_torch.parallel import streaming_rerank_eval
 from ssg_tpu_torch.parallel.dp import shard_batch
 from ssg_tpu_torch.parallel.ring import all_gather
+from ssg_tpu_torch.utils.profiling import span
 
 __all__ = ["extract_features", "re_ranking", "cluster", "cluster_groups", "train",
            "pairwise_distance", "evaluate_all", "Evaluator"]
@@ -62,19 +69,21 @@ def extract_features(model, batches, device=None, mesh=None):
     was_training = model.training
     model.eval()
     try:
-        for images, p, c, mask in batches:
-            if multi:
-                images = shard_batch(mesh, images)
-            emb = _forward_eval(model, torch.as_tensor(images, device=dev))
-            chunks.append(all_gather(mesh, emb.transpose(0, 1).contiguous()).transpose(0, 1)
-                          if multi else emb)
-            pids.append(np.asarray(p))
-            cams.append(np.asarray(c))
-            masks.append(np.asarray(mask, dtype=bool))
+        for b, (images, p, c, mask) in enumerate(batches):
+            with span("extract.batch", key=b):
+                if multi:
+                    images = shard_batch(mesh, images)
+                emb = _forward_eval(model, torch.as_tensor(images, device=dev))
+                chunks.append(all_gather(mesh, emb.transpose(0, 1).contiguous()).transpose(0, 1)
+                              if multi else emb)
+                pids.append(np.asarray(p))
+                cams.append(np.asarray(c))
+                masks.append(np.asarray(mask, dtype=bool))
     finally:
         model.train(was_training)
-    keep = np.concatenate(masks)
-    feats = torch.cat(chunks, 1)[:, torch.as_tensor(np.flatnonzero(keep), device=dev)]
+    with span("extract.gather"):
+        keep = np.concatenate(masks)
+        feats = torch.cat(chunks, 1)[:, torch.as_tensor(np.flatnonzero(keep), device=dev)]
     names = getattr(batches, "fnames", None)
     fnames = None if names is None else [f for f, m in zip(names, keep) if m]
     return feats, np.concatenate(pids)[keep], np.concatenate(cams)[keep], fnames
@@ -109,18 +118,23 @@ def cluster_groups(feats, k1: int = 20, k2: int = 6, lambda_value: float = 0.1,
     f = torch.as_tensor(feats, device=resolve_device(device))
     labels, counts, epss = [], [], []
     for g in range(f.shape[0]):
-        original = pairwise_distance(f[g], squared=True, impl=dist_impl)
-        dist = _re_ranking_impl(original, int(k1), int(k2), float(lambda_value), l1_impl)
-        eps_g = select_eps(dist, rho=rho)
-        labels_g, n_g = dbscan(dist, eps_g, min_samples=int(min_samples))
+        with span("cluster.dist", key=g, device=True):
+            original = pairwise_distance(f[g], squared=True, impl=dist_impl)
+        with span("cluster.rerank", key=g, device=True):
+            dist = _re_ranking_impl(original, int(k1), int(k2), float(lambda_value), l1_impl)
+        with span("cluster.eps", key=g, device=True):
+            eps_g = select_eps(dist, rho=rho)
+        with span("cluster.dbscan", key=g, device=True):
+            labels_g, n_g = dbscan(dist, eps_g, min_samples=int(min_samples))
         labels.append(labels_g)
         counts.append(n_g)
         epss.append(eps_g)
-    return (
-        torch.stack(labels).cpu().numpy(),
-        [int(c) for c in torch.stack(counts).cpu()],
-        [float(e) for e in torch.stack(epss).cpu()],
-    )
+    with span("cluster.readback"):
+        return (
+            torch.stack(labels).cpu().numpy(),
+            [int(c) for c in torch.stack(counts).cpu()],
+            [float(e) for e in torch.stack(epss).cpu()],
+        )
 
 
 def evaluate_all(distmat, query, gallery, logger=None, query_chunk: int | None = None,

@@ -12,11 +12,15 @@ order-free closed forms, computed here with fixed-shape matrix operations:
 Components come from transitive-closure squaring: each round is one 0/1
 bf16 GEMM (fp32 accumulation keeps nonzero-ness exact) and doubles the
 path length covered, until nothing changes (one host check per round).
+Each round adds one to the ``dbscan.closure_rounds`` counter of
+``utils.profiling`` while spans record.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ssg_tpu_torch.utils.profiling import count
 
 
 def dbscan(dist: torch.Tensor, eps, min_samples: int = 4) -> tuple[torch.Tensor, torch.Tensor]:
@@ -36,6 +40,7 @@ def dbscan(dist: torch.Tensor, eps, min_samples: int = 4) -> tuple[torch.Tensor,
     eye = torch.eye(n, dtype=torch.bool, device=dev)
     reach = (adj & core[None, :] & core[:, None]) | (eye & core[:, None])
     while True:
+        count("dbscan.closure_rounds")
         r16 = reach.to(torch.bfloat16)
         new = reach | ((r16 @ r16) > 0)
         if torch.equal(new, reach):

@@ -11,6 +11,13 @@ in it waits for the device; ``Trainer`` reads the losses back only every
 ``print_freq`` steps. The host renders uint8 batches on a producer thread
 (``data.prefetch``) into pinned memory and uploads them without blocking.
 
+Spans (``utils.profiling``; they record only under a profiler or
+``record_spans()``): ``train.step`` around each call of the step, with
+``train.forward``, ``train.backward`` and ``train.optimizer`` inside it;
+``Trainer`` adds ``train.feed_wait``, ``train.upload`` and ``train.drain``
+on its thread and ``feed.host`` on the producer's. The step's spans are
+keyed by the step's index among the calls of the step function.
+
 bf16 policy: the model computes its backbone in bf16 from fp32 master
 weights, the optimizer state is fp32 and the losses are fp32.
 
@@ -30,6 +37,7 @@ every rank takes the same optimizer step.
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Callable
 
@@ -47,6 +55,7 @@ from ssg_tpu_torch.parallel.dp import all_reduce_grads, shard_batch
 from ssg_tpu_torch.parallel.ring import gather_rows
 from ssg_tpu_torch.train.schedule import set_learning_rate
 from ssg_tpu_torch.utils.meters import AverageMeter
+from ssg_tpu_torch.utils.profiling import span
 
 
 def make_train_step(model, optimizer: torch.optim.Optimizer, margin: float = 0.3,
@@ -87,8 +96,30 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, margin: float = 0.3
     if oim_weight > 0.0 and lut is None:
         raise ValueError("oim_weight > 0 needs the OIM table: pass lut=")
     dp = mesh if mesh is not None and mesh.size > 1 else None
+    calls = [0]  # the steps taken: each span's key
 
     def step(images_u8: torch.Tensor, labels: torch.Tensor, generator=None, crops=None):
+        calls[0] += 1
+        with span("train.step", key=calls[0] - 1):
+            return _step(images_u8, labels, generator, crops)
+
+    def _step(images_u8, labels, generator, crops):
+        with span("train.forward"):
+            total, precs, new_lut = _forward(images_u8, labels, generator, crops)
+        with span("train.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            with data_parallel(dp):
+                total.backward()
+            if dp is not None:
+                all_reduce_grads(dp, [q for group in optimizer.param_groups
+                                      for q in group["params"]])
+        with span("train.optimizer"):
+            optimizer.step()
+            if new_lut is not None:
+                lut.copy_(new_lut)
+        return {"loss": total.detach(), "prec": torch.stack(precs).mean()}
+
+    def _forward(images_u8, labels, generator, crops):
         if crops is None:
             crops = transforms.draw_crops(generator, labels.shape[-1], *images_u8.shape[1:3])
         if dp is not None:
@@ -119,15 +150,7 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, margin: float = 0.3
             w = w / w.norm(dim=1, keepdim=True).clamp_min(1e-12)
             oim, new_lut = oim_loss(lut, w, labels[num_parts], oim_temperature, oim_momentum)
             total = total + oim_weight * oim
-        optimizer.zero_grad(set_to_none=True)
-        with data_parallel(dp):
-            total.backward()
-        if dp is not None:
-            all_reduce_grads(dp, [q for group in optimizer.param_groups for q in group["params"]])
-        optimizer.step()
-        if new_lut is not None:
-            lut.copy_(new_lut)
-        return {"loss": total.detach(), "prec": torch.stack(precs).mean()}
+        return total, precs, new_lut
 
     return step
 
@@ -154,12 +177,20 @@ class Trainer:
         With a mesh the images are this rank's slice of the batch
         (``parallel.dp.shard_batch``), the labels the whole batch's."""
         pin = self.device.type == "cuda"
-        for images, labels in batch_iter:
-            if self.mesh is not None:
-                images = shard_batch(self.mesh, images)
-            images = torch.from_numpy(np.ascontiguousarray(images))
-            labels = torch.from_numpy(np.ascontiguousarray(labels, dtype=np.int64))
-            yield (images.pin_memory(), labels.pin_memory()) if pin else (images, labels)
+        batch_iter = iter(batch_iter)
+        while True:
+            with span("feed.host"):
+                item = next(batch_iter, None)
+                if item is None:
+                    return
+                images, labels = item
+                if self.mesh is not None:
+                    images = shard_batch(self.mesh, images)
+                images = torch.from_numpy(np.ascontiguousarray(images))
+                labels = torch.from_numpy(np.ascontiguousarray(labels, dtype=np.int64))
+                if pin:
+                    images, labels = images.pin_memory(), labels.pin_memory()
+            yield images, labels
 
     def train(self, epoch: int, batch_iter, generator: torch.Generator,
               lr: float | None = None, prefetch_depth: int = 2) -> dict:
@@ -173,26 +204,36 @@ class Trainer:
         batches = self._host(batch_iter)
         if prefetch_depth > 0:
             batches = prefetch(batches, depth=prefetch_depth)
+        batches = iter(batches)
         losses, precs, batch_time = AverageMeter(), AverageMeter(), AverageMeter()
         end = time.time()
         pending = []  # device-side metrics, read back only at print_freq
         steps = 0
-        for i, (images, labels) in enumerate(batches):
-            metrics = self.step_fn(images.to(self.device, non_blocking=True),
-                                   labels.to(self.device, non_blocking=True), generator)
+        for i in itertools.count():
+            with span("train.feed_wait"):
+                item = next(batches, None)
+            if item is None:
+                break
+            with span("train.upload"):
+                images = item[0].to(self.device, non_blocking=True)
+                labels = item[1].to(self.device, non_blocking=True)
+            metrics = self.step_fn(images, labels, generator)
             pending.append((i, labels.shape[-1], metrics))
             steps += 1
             batch_time.update(time.time() - end)
             end = time.time()
             if (i + 1) % self.print_freq == 0:
-                self._drain(epoch, pending, losses, precs)
+                with span("train.drain"):
+                    self._drain(epoch, pending, losses, precs)
                 print(
                     f"Epoch: [{epoch}][{i + 1}]\t"
                     f"Time {batch_time.val:.3f} ({batch_time.avg:.3f})\t"
                     f"Loss {losses.val:.3f} ({losses.avg:.3f})\t"
                     f"Prec {precs.val:.2%} ({precs.avg:.2%})"
                 )
-        self._drain(epoch, pending, losses, precs)
+        if pending:
+            with span("train.drain"):
+                self._drain(epoch, pending, losses, precs)
         return {"loss": losses.avg, "prec": precs.avg, "steps": steps}
 
     def _drain(self, epoch, pending, losses, precs):
