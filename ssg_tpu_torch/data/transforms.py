@@ -52,9 +52,12 @@ def rect_scale(images: torch.Tensor, height: int, width: int) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def normalize_float(x: torch.Tensor, dtype) -> torch.Tensor:
-    """Float pixels on the 0..255 scale -> ImageNet-normalised ``dtype``."""
-    mean, std = _stats(x.device)
+def normalize_float(x: torch.Tensor, dtype, stats=None) -> torch.Tensor:
+    """Float pixels on the 0..255 scale -> ImageNet-normalised ``dtype``.
+    ``stats``: the ``(mean, std)`` of ``_stats(x.device)``, built once by
+    a caller that normalises every step (building them copies from the host
+    and waits for the copy, which a CUDA graph cannot capture)."""
+    mean, std = _stats(x.device) if stats is None else stats
     return ((x / 255.0 - mean) / std).to(dtype)
 
 

@@ -12,6 +12,14 @@ included (``tests/test_torch_train.py`` holds the two to each other).
 It runs the multi-tensor (``foreach``) update: its in-place updates bump
 each parameter's version, which the model's cached casts and BN folds key
 on (the ``fused`` update does not).
+
+On the card the optimizer is ``capturable``: its step counters live on the
+device and the bias corrections are computed there, in fp32, so the update
+can be captured into a CUDA graph and replayed with the right step count
+(``train/trainer.py``). Eager and replayed steps then run the same update.
+A replay writes the parameters without bumping their versions, so the
+graphed step bumps them itself after each replay. On the CPU nothing
+changes: the corrections are Python floats, as without the flag.
 """
 
 from __future__ import annotations
@@ -21,9 +29,30 @@ import torch
 
 def make_optimizer(params, learning_rate: float,
                    weight_decay: float = 5e-4) -> torch.optim.AdamW:
-    """AdamW over ``params`` with the learning rate settable per epoch."""
+    """AdamW over ``params`` (tensors or param-group dicts) with the
+    learning rate settable per epoch; ``capturable`` where every parameter
+    is on the card."""
+    params = list(params)
+    tensors = [p for g in params for p in (g["params"] if isinstance(g, dict) else (g,))]
+    capturable = bool(tensors) and all(p.is_cuda for p in tensors)
     return torch.optim.AdamW(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=weight_decay, foreach=True)
+                             weight_decay=weight_decay, foreach=True, capturable=capturable)
+
+
+def load_optimizer_state(optimizer: torch.optim.AdamW, state_dict: dict) -> None:
+    """``optimizer.load_state_dict(state_dict)``, keeping each group's
+    ``capturable`` as ``make_optimizer`` chose it for these parameters (a
+    checkpoint written on another device carries its own), with the step
+    counters where that needs them: on the parameter's device when
+    capturable, else on the host."""
+    capturable = [g["capturable"] for g in optimizer.param_groups]
+    optimizer.load_state_dict(state_dict)
+    for group, cap in zip(optimizer.param_groups, capturable):
+        group["capturable"] = cap
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            if "step" in state:
+                state["step"] = state["step"].to(p.device if cap else "cpu")
 
 
 def lr_at(

@@ -39,7 +39,7 @@ from ssg_tpu_torch._device import resolve_device
 from ssg_tpu_torch.data.preprocessor import Preprocessor
 from ssg_tpu_torch.data.sampler import RandomIdentitySampler
 from ssg_tpu_torch.parallel import make_mesh, replicate, streaming_cluster_groups
-from ssg_tpu_torch.train.schedule import lr_at, make_optimizer
+from ssg_tpu_torch.train.schedule import load_optimizer_state, lr_at, make_optimizer
 from ssg_tpu_torch.train.semi import affiliate_clusters
 from ssg_tpu_torch.train.trainer import Trainer, make_train_step
 from ssg_tpu_torch.utils.serialization import load_checkpoint, save_checkpoint
@@ -140,12 +140,11 @@ def run_ssg(model, tgt, config: SSGConfig | None = None, logger=None, evaluate_e
     optimizer = make_optimizer(model.parameters(), cfg.lr, weight_decay=cfg.weight_decay)
     start_iter = 0
     if resume_from is not None:
-        # On the host: the optimizer's step counters stay there, where AdamW
-        # reads them without waiting for the device; load_state_dict moves
-        # every other tensor to its parameter's device.
+        # On the host: the optimizer's load moves each tensor to its
+        # parameter's device, the step counters to where AdamW reads them.
         ckpt = load_checkpoint(resume_from, device="cpu")
         model.load_state_dict(ckpt["model"])
-        optimizer.load_state_dict(ckpt["optimizer"])
+        load_optimizer_state(optimizer, ckpt["optimizer"])
         start_iter = int(ckpt["iteration"]) + 1
         print(f"Resumed from {resume_from}: continuing at iteration {start_iter}")
     if mesh is not None:

@@ -11,12 +11,42 @@ in it waits for the device; ``Trainer`` reads the losses back only every
 ``print_freq`` steps. The host renders uint8 batches on a producer thread
 (``data.prefetch``) into pinned memory and uploads them without blocking.
 
+CUDA graphs: on the card the step is captured once into three CUDA graphs
+(forward, backward, optimizer) that share one memory pool, and replayed in
+that order at every later call, so the host launches three graphs where it
+would launch some 1,400 kernels. The kernels and the math are the eager
+step's. The crops are still drawn eagerly on the caller's generator (the
+same random stream), and each call copies its images, labels, boxes and
+flips into the graphs' static inputs and returns copies of the static loss
+and precision. The graphs are used when the parameters are on the card,
+the optimizer is ``capturable`` (``train/schedule.py``), there is no mesh
+of more than one rank, ``remat`` is off and no module of the model has a
+forward or backward hook (nor a global one); everything else runs the
+eager step. The first call of a signature (the images' shape and dtype,
+the labels' shape, whether crops are passed, each param group's learning
+rate, decay, betas, eps and ``capturable``, and the TF32 and cuDNN
+determinism flags, all of which a capture bakes in) runs eager: a real
+step that initialises AdamW's state and cuDNN's plans. The second captures
+the graphs and replays them once (a capture runs nothing); later calls
+replay. A call with another signature frees the graphs and runs eager, so
+a new learning rate is captured anew, never replayed stale. A replay
+writes the parameters, AdamW's state and the BatchNorm statistics without
+bumping their ``_version``; the model's no-grad weight casts and BN folds
+key on it, so the step bumps the parameters and buffers it wrote after
+each replay. The capture runs in CUDA's thread-local mode, so the feed's
+producer thread may pin and free host memory meanwhile; the backward is
+launched onto the capturing stream from autograd's device thread.
+
 Spans (``utils.profiling``; they record only under a profiler or
 ``record_spans()``): ``train.step`` around each call of the step, with
-``train.forward``, ``train.backward`` and ``train.optimizer`` inside it;
-``Trainer`` adds ``train.feed_wait``, ``train.upload`` and ``train.drain``
-on its thread and ``feed.host`` on the producer's. The step's spans are
-keyed by the step's index among the calls of the step function.
+``train.forward``, ``train.backward`` and ``train.optimizer`` inside it
+(eager: the launches of each phase; graphed: the crop draw, the input
+copies and the forward's replay, the backward's replay, the optimizer's
+replay and the version bump); ``Trainer`` adds ``train.feed_wait``,
+``train.upload`` and ``train.drain`` on its thread and ``feed.host`` on
+the producer's. The step's spans are keyed by the step's index among the
+calls of the step function. The counter ``train.graph_replays``
+(``GRAPH_REPLAYS``) counts the graphed steps.
 
 bf16 policy: the model computes its backbone in bf16 from fp32 master
 weights, the optimizer state is fp32 and the losses are fp32.
@@ -39,11 +69,13 @@ from __future__ import annotations
 
 import itertools
 import time
+from types import SimpleNamespace
 from typing import Callable
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.modules import module as nn_module
 
 from ssg_tpu_torch._device import resolve_device
 from ssg_tpu_torch.data import transforms
@@ -55,7 +87,9 @@ from ssg_tpu_torch.parallel.dp import all_reduce_grads, shard_batch
 from ssg_tpu_torch.parallel.ring import gather_rows
 from ssg_tpu_torch.train.schedule import set_learning_rate
 from ssg_tpu_torch.utils.meters import AverageMeter
-from ssg_tpu_torch.utils.profiling import span
+from ssg_tpu_torch.utils.profiling import count, span
+
+GRAPH_REPLAYS = "train.graph_replays"  # the counter of graphed steps
 
 
 def make_train_step(model, optimizer: torch.optim.Optimizer, margin: float = 0.3,
@@ -92,16 +126,104 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, margin: float = 0.3
     replicate``). ``images_u8`` is then this rank's slice of the batch,
     while ``labels`` and ``crops`` are the global batch's. Dropout draws
     each rank's rows from its own device generator.
+
+    On the card, without a mesh, ``remat`` or hooks, the step replays CUDA
+    graphs from its second call of a signature on (the module docstring).
+    The tensors it returns are each call's own.
     """
     if oim_weight > 0.0 and lut is None:
         raise ValueError("oim_weight > 0 needs the OIM table: pass lut=")
     dp = mesh if mesh is not None and mesh.size > 1 else None
     calls = [0]  # the steps taken: each span's key
+    modules = list(model.modules())  # where hooks would be missed by a replay
+    stats = {}  # device -> the ImageNet mean and std
+    graphed = {"signature": None, "graphs": None}
 
     def step(images_u8: torch.Tensor, labels: torch.Tensor, generator=None, crops=None):
         calls[0] += 1
         with span("train.step", key=calls[0] - 1):
-            return _step(images_u8, labels, generator, crops)
+            signature = _signature(images_u8, labels, crops)
+            fresh = signature != graphed["signature"]
+            graphed["signature"] = signature
+            if fresh or not _graphable():
+                graphed["graphs"] = None
+                return _step(images_u8, labels, generator, crops)
+            if graphed["graphs"] is None:
+                graphed["graphs"] = _capture(images_u8, labels)
+            count(GRAPH_REPLAYS)
+            return _replay(graphed["graphs"], images_u8, labels, generator, crops)
+
+    def _signature(images_u8, labels, crops):
+        return (tuple(images_u8.shape), images_u8.dtype, tuple(labels.shape), crops is None,
+                tuple((g.get("lr"), g.get("weight_decay"), g.get("betas"), g.get("eps"),
+                       g.get("capturable"), len(g["params"])) for g in optimizer.param_groups),
+                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+                torch.backends.cudnn.deterministic)
+
+    def _graphable():
+        return (dp is None and not remat
+                and all(g.get("capturable", False) and all(q.is_cuda for q in g["params"])
+                        for g in optimizer.param_groups)
+                and not (nn_module._global_forward_hooks or nn_module._global_forward_pre_hooks
+                         or nn_module._global_backward_hooks
+                         or nn_module._global_backward_pre_hooks)
+                and not any(m._forward_hooks or m._forward_pre_hooks or m._backward_hooks
+                            or m._backward_pre_hooks for m in modules))
+
+    def _imagenet_stats(device):
+        if device not in stats:
+            stats[device] = transforms._stats(device)
+        return stats[device]
+
+    def _capture(images_u8, labels):
+        """The step's three graphs on static inputs, captured in the order
+        they replay into one pool. Nothing runs: the inputs are empty."""
+        dev, batch = images_u8.device, labels.shape[-1]
+        _imagenet_stats(dev)  # built outside the capture: it copies from the host
+        g = SimpleNamespace(
+            images=torch.empty_like(images_u8), labels=torch.empty_like(labels),
+            boxes=torch.empty((batch, 4), dtype=torch.float32, device=dev),
+            flips=torch.empty((batch,), dtype=torch.bool, device=dev),
+            forward=torch.cuda.CUDAGraph(), backward=torch.cuda.CUDAGraph(),
+            optimizer=torch.cuda.CUDAGraph())
+        pool, stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream(dev)
+
+        def capturing(graph):
+            return torch.cuda.graph(graph, pool=pool, stream=stream,
+                                    capture_error_mode="thread_local")
+
+        optimizer.zero_grad(set_to_none=True)  # the backward's .grad are its own
+        with capturing(g.forward):
+            total, precs, new_lut = _forward(g.images, g.labels, None, (g.boxes, g.flips))
+            g.out = torch.stack([total.detach(), torch.stack(precs).mean()])
+        with capturing(g.backward):
+            total.backward()
+        with capturing(g.optimizer):
+            optimizer.step()
+            if new_lut is not None:
+                lut.copy_(new_lut)
+        g.written = [q for group in optimizer.param_groups for q in group["params"]]
+        g.written += list(model.buffers()) + ([lut] if lut is not None else [])
+        return g
+
+    def _replay(g, images_u8, labels, generator, crops):
+        with span("train.forward"):
+            if crops is None:
+                crops = transforms.draw_crops(generator, labels.shape[-1], *images_u8.shape[1:3])
+            g.images.copy_(images_u8)
+            g.labels.copy_(labels)
+            g.boxes.copy_(crops[0])
+            g.flips.copy_(crops[1])
+            if not model.training:
+                model.train()
+            g.forward.replay()
+        with span("train.backward"):
+            g.backward.replay()
+        with span("train.optimizer"):
+            g.optimizer.replay()
+            torch.autograd.graph.increment_version(g.written)
+        out = g.out.clone()  # callers keep results: each its own
+        return {"loss": out[0], "prec": out[1]}
 
     def _step(images_u8, labels, generator, crops):
         with span("train.forward"):
@@ -125,7 +247,8 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, margin: float = 0.3
         if dp is not None:
             crops = tuple(shard_batch(dp, t) for t in crops)
         x = transforms.normalize_float(
-            transforms.crop_flip(images_u8, *crops, height, width), torch.float32)
+            transforms.crop_flip(images_u8, *crops, height, width), torch.float32,
+            stats=_imagenet_stats(images_u8.device))
         model.train()
         with data_parallel(dp):
             out = model(x, remat=remat)

@@ -23,7 +23,8 @@ from ssg_tpu_torch.ops.bottleneck import bf16_ulp_error, bottleneck_ref, fused_b
 from ssg_tpu_torch.ops.bottleneck_stage import fused_bottleneck_stage, stage_ref
 from ssg_tpu_torch.ops.distance import pairwise_distance, pairwise_distance_ref
 from ssg_tpu_torch.ops.l1 import l1_distance, l1_distance_ref
-from ssg_tpu_torch.train.schedule import make_optimizer
+from ssg_tpu_torch.utils import profiling
+from ssg_tpu_torch.train.schedule import load_optimizer_state, make_optimizer, set_learning_rate
 from ssg_tpu_torch.train.trainer import make_train_step
 
 pytestmark = pytest.mark.cuda
@@ -575,6 +576,183 @@ def test_remat_step_equals_plain_step_on_card(gen, cuda, dtype, monkeypatch):
     remat_state = remat.state_dict()
     for name, t in plain.state_dict().items():
         assert torch.equal(remat_state[name], t), name
+
+
+# ---- the graphed train step ---------------------------------------------------------
+
+def _graph_twins(cuda, lr=1e-3, stage_sizes=(1, 1), fused_eval=False, dropout=0.0, oim=False,
+                 **step_kw):
+    # Two copies of a small SSG ResNet with the same weights on the card, each
+    # with its own capturable AdamW and step: the first graphed, the second
+    # kept eager by a forward pre-hook that does nothing.
+    kw = dict(stage_sizes=stage_sizes, num_features=16, num_classes=4, dropout=dropout,
+              dtype=torch.bfloat16, fused_eval=fused_eval)
+    base = models.create("resnet50", **kw).reset_parameters(torch.Generator().manual_seed(0))
+    twins = []
+    for graphed in (True, False):
+        model = models.create("resnet50", **kw)
+        model.load_state_dict(base.state_dict())
+        model.to(cuda, memory_format=torch.channels_last)
+        if not graphed:
+            model.register_forward_pre_hook(lambda mod, args: None)
+        opt = make_optimizer(model.parameters(), lr)
+        assert all(g["capturable"] for g in opt.param_groups)
+        if oim:
+            step_kw = dict(step_kw, oim_weight=1.0,
+                           lut=torch.zeros((4, 16), dtype=torch.float32, device=cuda))
+        step = make_train_step(model, opt, num_parts=3, height=128, width=64, **step_kw)
+        twins.append((model, opt, step, step_kw.get("lut")))
+    return twins
+
+
+def _graph_batches(gen, cuda, steps):
+    labels = np.stack([np.repeat(np.arange(4), 2)] * 3 + [np.repeat([0, 1, -1, 3], 2)])
+    return [(torch.from_numpy(gen.integers(0, 256, size=(8, 128, 64, 3), dtype=np.uint8)).to(cuda),
+             torch.from_numpy(labels).to(cuda)) for _ in range(steps)]
+
+
+def _run_steps(step, batches, lr_after=None, opt=None):
+    # The steps on one crop generator and one dropout stream; optionally a
+    # new learning rate after the first half. Returns the outputs and the
+    # graph replays counted.
+    crops = torch.Generator(device=batches[0][0].device).manual_seed(1)
+    torch.manual_seed(5)
+    outs = []
+    with profiling.record_spans():
+        for i, (x, y) in enumerate(batches):
+            if lr_after is not None and i == len(batches) // 2:
+                set_learning_rate(opt, lr_after)
+            outs.append(step(x, y, crops))
+        torch.cuda.synchronize()
+    return outs, profiling.recorded().counters.get("train.graph_replays", 0)
+
+
+def _same(a, b, what):
+    # Bit for bit: a replay runs the eager step's kernels on the same inputs.
+    assert torch.equal(a, b), (what, float((a.double() - b.double()).abs().max()))
+
+
+def _assert_same_training(graphed, eager, outs_g, outs_e):
+    (mg, og, _, lut_g), (me, oe, _, lut_e) = graphed, eager
+    _same(torch.stack([o["loss"] for o in outs_g]), torch.stack([o["loss"] for o in outs_e]),
+          "losses")
+    _same(torch.stack([o["prec"] for o in outs_g]), torch.stack([o["prec"] for o in outs_e]),
+          "precs")
+    for (name, p), q in zip(mg.named_parameters(), me.parameters()):
+        _same(p.detach(), q.detach(), name)
+        state = og.state.get(p, {})  # none for a parameter no loss reaches
+        assert state.keys() == oe.state.get(q, {}).keys(), name
+        for k, v in state.items():  # the AdamW moments and step count
+            _same(v, oe.state[q][k], f"{name} {k}")
+    for (name, t), u in zip(mg.named_buffers(), me.buffers()):
+        _same(t, u, name)  # the BatchNorm running statistics
+    if lut_g is not None:
+        _same(lut_g, lut_e, "OIM table")
+
+
+@pytest.mark.parametrize("variant", ["plain", "ce", "oim"])
+def test_graphed_step_equals_eager_step_on_card(gen, cuda, variant, monkeypatch):
+    # Six steps of the same model from the same weights, crops and dropout
+    # draws: the first eager on both, the second captured and replayed once,
+    # then replays. cuDNN's deterministic kernels, as in the remat test.
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    kw = {"plain": {}, "ce": dict(ce_weight=0.5, dropout=0.3), "oim": dict(oim=True)}[variant]
+    graphed, eager = _graph_twins(cuda, **kw)
+    batches = _graph_batches(gen, cuda, 6)
+    outs_g, replays = _run_steps(graphed[2], batches)
+    outs_e, none = _run_steps(eager[2], batches)
+    assert (replays, none) == (5, 0)
+    _assert_same_training(graphed, eager, outs_g, outs_e)
+
+
+def test_graphed_step_returns_each_call_its_own_loss(gen, cuda, monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    graphed, eager = _graph_twins(cuda)
+    batches = _graph_batches(gen, cuda, 10)
+    outs_g, replays = _run_steps(graphed[2], batches)
+    outs_e, _ = _run_steps(eager[2], batches)
+    assert replays == 9
+    for key in ("loss", "prec"):
+        assert len({o[key].data_ptr() for o in outs_g}) == 10, key
+    losses = torch.stack([o["loss"] for o in outs_g])
+    assert len(set(losses.tolist())) == 10
+    _same(losses, torch.stack([o["loss"] for o in outs_e]), "losses")
+
+
+def test_graphed_steps_leave_no_stale_cast_or_fold(gen, cuda, monkeypatch):
+    # An extract with fused_eval before and after graphed steps: the replays
+    # change the weights and BatchNorm statistics behind the cached casts and
+    # folds, which must see it. The extract after them equals a fresh model's
+    # with the same state and the eager twin's.
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    twins = _graph_twins(cuda, lr=1e-2, stage_sizes=(2, 2), fused_eval=True)
+    batches = _graph_batches(gen, cuda, 4)
+    images = batches[0][0].cpu().numpy()
+    feed = [(images, np.zeros(8), np.zeros(8), np.ones(8, dtype=bool))]
+    feats = []
+    for model, _, step, _ in twins:
+        before = api.extract_features(model, feed, device=cuda)[0]
+        _run_steps(step, batches)
+        feats.append((before, api.extract_features(model, feed, device=cuda)[0]))
+    model = twins[0][0]
+    fresh = models.create("resnet50", stage_sizes=(2, 2), num_features=16, num_classes=4,
+                          dtype=torch.bfloat16, fused_eval=True)
+    fresh.load_state_dict(model.state_dict())
+    fresh.to(cuda, memory_format=torch.channels_last)
+    (before, after), (_, after_eager) = feats
+    assert float((after - before).abs().max()) > 1e-2  # the steps moved the features
+    _same(after, api.extract_features(fresh, feed, device=cuda)[0], "fresh model")
+    _same(after, after_eager, "eager twin")
+
+
+def test_graphed_step_recaptures_a_new_learning_rate(gen, cuda, monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    graphed, eager = _graph_twins(cuda)
+    batches = _graph_batches(gen, cuda, 6)
+    outs_g, replays = _run_steps(graphed[2], batches, lr_after=3e-3, opt=graphed[1])
+    outs_e, _ = _run_steps(eager[2], batches, lr_after=3e-3, opt=eager[1])
+    assert replays == 4  # steps 2-3, then 5-6: step 4 runs the new rate eager
+    _assert_same_training(graphed, eager, outs_g, outs_e)
+
+
+@pytest.mark.parametrize("case", ["graphed", "hook", "remat", "cpu"])
+def test_graphed_step_engages_only_where_it_can(gen, cuda, case):
+    device = torch.device("cpu") if case == "cpu" else cuda
+    model = models.create("resnet50", stage_sizes=(1, 1), num_features=16)
+    model.reset_parameters(torch.Generator().manual_seed(0)).to(device)
+    if case == "hook":
+        model.backbone.layer1.register_forward_hook(lambda mod, args, out: None)
+    opt = make_optimizer(model.parameters(), 1e-3)
+    assert opt.param_groups[0]["capturable"] == (case != "cpu")
+    step = make_train_step(model, opt, num_parts=3, height=128, width=64,
+                           remat=case == "remat")
+    batches = [(x.to(device), y[:3].to(device)) for x, y in _graph_batches(gen, cuda, 4)]
+    crops = torch.Generator(device=device).manual_seed(1)
+    with profiling.record_spans():
+        losses = [float(step(x, y, crops)["loss"]) for x, y in batches]
+    assert np.isfinite(losses).all()
+    assert profiling.recorded().counters.get("train.graph_replays", 0) == (
+        3 if case == "graphed" else 0)
+
+
+def test_load_optimizer_state_moves_host_counters_to_the_card(cuda):
+    # A checkpoint written on the CPU (not capturable, counters on the host)
+    # resumes on the card as the card's capturable optimizer, and its next
+    # step is the one the CPU takes.
+    p = torch.ones(3, requires_grad=True)
+    opt = make_optimizer([p], 1e-3)
+    p.grad = torch.ones(3)
+    opt.step()
+    q = p.detach().to(cuda).requires_grad_()
+    resumed = make_optimizer([q], 1e-3)
+    load_optimizer_state(resumed, opt.state_dict())
+    assert resumed.param_groups[0]["capturable"] is True
+    p.grad, q.grad = torch.full((3,), 0.5), torch.full((3,), 0.5, device=cuda)
+    opt.step()
+    resumed.step()
+    assert resumed.state[q]["step"].device.type == "cuda"
+    assert float(resumed.state[q]["step"]) == 2.0
+    torch.testing.assert_close(q.detach().cpu(), p.detach(), rtol=1e-6, atol=0)
 
 
 def _clustered(gen, n, ids, dim):

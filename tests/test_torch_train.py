@@ -44,10 +44,11 @@ from ssg_tpu_torch.models.convert import from_jax_variables
 from ssg_tpu_torch.parallel import Mesh
 from ssg_tpu_torch.ops.triplet import batch_hard_triplet_loss
 from ssg_tpu_torch.train import semi
-from ssg_tpu_torch.train.schedule import lr_at, make_optimizer, set_learning_rate
+from ssg_tpu_torch.train.schedule import (load_optimizer_state, lr_at, make_optimizer,
+                                          set_learning_rate)
 from ssg_tpu_torch.train.ssg_loop import SSGConfig, join_rule, run_ssg
 from ssg_tpu_torch.train.trainer import Trainer, make_train_step
-from ssg_tpu_torch.utils import copy_state_dict, load_checkpoint, save_checkpoint
+from ssg_tpu_torch.utils import copy_state_dict, load_checkpoint, profiling, save_checkpoint
 
 H, W = 64, 32
 
@@ -384,6 +385,66 @@ def test_train_step_reduces_loss_plain_remat_and_oim(rng):
     assert not bool(kw["lut"][4:].any())
     with pytest.raises(ValueError, match="lut"):
         make_train_step(tm, make_optimizer(tm.parameters(), 1e-3), oim_weight=0.1)
+
+
+def _cpu_steps(rng, steps=3, **kw):
+    tm = models.create("resnet50", stage_sizes=(1, 1), num_features=16)
+    tm.reset_parameters(torch.Generator().manual_seed(0))
+    step = make_train_step(tm, make_optimizer(tm.parameters(), 1e-3), num_parts=3, height=32,
+                           width=16, **kw)
+    images = torch.from_numpy(rng.integers(0, 256, size=(8, 32, 16, 3), dtype=np.uint8))
+    labels = torch.from_numpy(np.tile(np.repeat(np.arange(2), 4)[None], (3, 1)))
+    g = torch.Generator().manual_seed(0)
+    with profiling.record_spans():
+        losses = [float(step(images, labels, g)["loss"]) for _ in range(steps)]
+    return losses, profiling.recorded().counters
+
+
+def test_train_step_never_captures_on_the_cpu(rng, monkeypatch):
+    # The CUDA graphs engage only where the parameters are on the card.
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA graph on the CPU")
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", refuse)
+    monkeypatch.setattr(torch.cuda, "graph", refuse)
+    losses, _ = _cpu_steps(rng, steps=4)
+    assert np.isfinite(losses).all()
+
+
+@pytest.mark.parametrize("kw", [{}, {"ce_weight": 0.5}, {"remat": True}])
+def test_train_step_counts_no_graph_replays_on_the_cpu(rng, kw):
+    _, counters = _cpu_steps(rng, **kw)
+    assert counters.get("train.graph_replays", 0) == 0
+
+
+def test_make_optimizer_is_capturable_only_on_the_card():
+    p = torch.zeros(3, requires_grad=True)
+    assert make_optimizer([p], 1e-3).param_groups[0]["capturable"] is False
+    groups = [{"params": [p]}, {"params": [torch.zeros(2, requires_grad=True)]}]
+    opt = make_optimizer(groups, 1e-3)
+    assert [g["capturable"] for g in opt.param_groups] == [False, False]
+    assert opt.param_groups[0]["foreach"] is True
+    if torch.cuda.is_available():  # a card's parameters, all of them
+        q = torch.zeros(3, device="cuda", requires_grad=True)
+        assert make_optimizer([q], 1e-3).param_groups[0]["capturable"] is True
+        assert make_optimizer([p, q], 1e-3).param_groups[0]["capturable"] is False
+
+
+def test_load_optimizer_state_keeps_this_devices_capturable():
+    # A checkpoint written on the card (capturable, its step counters there)
+    # resumes on the CPU as the CPU's optimizer: not capturable, counters on
+    # the host, and the next step continues the count.
+    p = torch.zeros(3, requires_grad=True)
+    opt = make_optimizer([p], 1e-3)
+    p.grad = torch.ones(3)
+    opt.step()
+    saved = opt.state_dict()
+    saved["param_groups"][0]["capturable"] = True
+    resumed = make_optimizer([p], 1e-3)
+    load_optimizer_state(resumed, saved)
+    assert resumed.param_groups[0]["capturable"] is False
+    resumed.step()
+    assert float(resumed.state[p]["step"]) == 2.0 and resumed.state[p]["step"].device.type == "cpu"
 
 
 def test_fused_eval_fold_cache_refolds_after_step(rng):
