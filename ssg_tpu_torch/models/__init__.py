@@ -1,5 +1,7 @@
-"""Model factory (counterpart of ``ssg_tpu.models``): the SSG ResNets and
-the SSG Inception, each ending in the same multi-part heads (``SSGHeads``)."""
+"""Model factory (counterpart of ``ssg_tpu.models``): the SSG ResNets, the
+SSG Inception and the SSG ViT-B/16 at patch stride 12 (the port's own; the
+JAX package has no transformer), each ending in the same multi-part heads
+(``SSGHeads``)."""
 
 from ssg_tpu_torch.models.inception import SSGInception, inception
 from ssg_tpu_torch.models.resnet import (
@@ -13,6 +15,7 @@ from ssg_tpu_torch.models.resnet import (
     resnet101,
     resnet152,
 )
+from ssg_tpu_torch.models.vit import SSGViT, vit_base_patch16_s12
 
 _FACTORY = {
     "resnet18": resnet18,
@@ -21,6 +24,7 @@ _FACTORY = {
     "resnet101": resnet101,
     "resnet152": resnet152,
     "inception": inception,
+    "vit_base_patch16_s12": vit_base_patch16_s12,
 }
 
 
@@ -35,5 +39,6 @@ def create(name: str, **kwargs) -> SSGHeads:
     return _FACTORY[name](**kwargs)
 
 
-__all__ = ["BasicBlock", "Bottleneck", "SSGHeads", "SSGInception", "SSGResNet", "create",
-           "inception", "names", "resnet18", "resnet34", "resnet50", "resnet101", "resnet152"]
+__all__ = ["BasicBlock", "Bottleneck", "SSGHeads", "SSGInception", "SSGResNet", "SSGViT",
+           "create", "inception", "names", "resnet18", "resnet34", "resnet50", "resnet101",
+           "resnet152", "vit_base_patch16_s12"]

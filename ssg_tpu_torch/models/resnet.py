@@ -124,27 +124,37 @@ def _checkpoint_contexts():
     return contextlib.nullcontext(), recomputing()
 
 
+def cast_masters(module: nn.Module, dtype: torch.dtype) -> tuple:
+    """``module``'s fp32 master ``weight`` and ``bias`` (None or a tensor)
+    cast to ``dtype``. The cast is differentiable, so gradients reach the
+    masters. Without autograd (an eval extract) the copies are cached on the
+    module until a master is replaced or changed in place (its
+    ``_version``)."""
+    params = module._parameters  # dict reads, not Module.__getattr__: once a layer a call
+    w, b = params["weight"], params["bias"]
+    if w.dtype == dtype:
+        return w, b
+    if torch.is_grad_enabled():
+        return w.to(dtype), None if b is None else b.to(dtype)
+    key = (dtype, w.data_ptr(), w._version, None if b is None else (b.data_ptr(), b._version))
+    c = module._cast_cache
+    if c is None or c[0] != key:
+        c = module._cast_cache = (key, w.to(dtype), None if b is None else b.to(dtype))
+    return c[1], c[2]
+
+
 class Conv2d(nn.Conv2d):
     """Bias-free convolution, ``k // 2`` padding, with an fp32 master weight
     cast to the input's type at each call (Flax's ``nn.Conv`` with its
-    default fp32 ``param_dtype``). The cast is differentiable, so gradients
-    reach the master. Without autograd (an eval extract) the cast copy is
-    cached until the weight is replaced or changed in place."""
+    default fp32 ``param_dtype``; ``cast_masters``)."""
+
+    _cast_cache = None
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1):
         super().__init__(cin, cout, k, stride, padding=k // 2, bias=False)
-        self._cast_cache = None
 
     def cast_weight(self, dtype: torch.dtype) -> torch.Tensor:
-        w = self.weight
-        if w.dtype == dtype:
-            return w
-        if torch.is_grad_enabled():
-            return w.to(dtype)
-        c = self._cast_cache
-        if c is None or c[0] != w.data_ptr() or c[1] != w._version or c[2].dtype != dtype:
-            c = self._cast_cache = (w.data_ptr(), w._version, w.to(dtype))
-        return c[2]
+        return cast_masters(self, dtype)[0]
 
     def forward(self, x):
         return F.conv2d(x, self.cast_weight(x.dtype), None, self.stride, self.padding)
@@ -332,13 +342,16 @@ class ResNetBackbone(nn.Module):
 
 class SSGHeads(nn.Module):
     """The SSG multi-part heads that every backbone ends in (``SSGResNet``,
-    ``models.inception.SSGInception``), and their random initialisation.
+    ``models.inception.SSGInception``, ``models.vit.SSGViT``), and their
+    random initialisation.
 
-    ``_heads(fmap)`` pools the (B, C, h, w) feature map three ways (whole
-    map, upper half, lower half) and returns a dict: ``"embeddings"``
-    (num_parts, B, F), raw in train mode (the triplet loss's input) and
-    L2-normalised in eval mode when ``norm`` is set; and ``"logits"``
-    (num_parts, B, num_classes) when ``num_classes > 0``. ``F``
+    ``_heads(fmap)`` pools the (B, C, h, w) feature map three ways
+    (``_pool``: whole map, upper half, lower half) and projects each part
+    (``_project``, which a backbone that pools its own way calls with its
+    (B, C) parts, as ``models.vit.SSGViT`` does). The result is a dict:
+    ``"embeddings"`` (num_parts, B, F), raw in train mode (the triplet
+    loss's input) and L2-normalised in eval mode when ``norm`` is set; and
+    ``"logits"`` (num_parts, B, num_classes) when ``num_classes > 0``. ``F``
     (``embedding_dim``) is ``num_features`` or, when that is 0, the
     backbone's channel count. Dropout (``dropout > 0``, train mode) applies
     after each part's BatchNorm and feeds only the classifier; the
@@ -378,13 +391,20 @@ class SSGHeads(nn.Module):
         return self
 
     def _heads(self, fmap: torch.Tensor) -> dict[str, torch.Tensor]:
+        return self._project(self._pool(fmap))
+
+    def _pool(self, fmap: torch.Tensor) -> list[torch.Tensor]:
+        """The (B, C, h, w) map's parts, each (B, C): whole, upper, lower."""
         h = fmap.shape[2]
         # max(h // 2, 1): a height-1 map would leave the upper slice empty.
-        pools = [
+        return [
             fmap.mean((2, 3)),
             fmap[:, :, :max(h // 2, 1)].mean((2, 3)),
             fmap[:, :, h // 2:].mean((2, 3)),
         ][:self.num_parts]
+
+    def _project(self, pools: list[torch.Tensor]) -> dict[str, torch.Tensor]:
+        """Each part's (B, C) pooled features through its heads."""
         embeddings, logits = [], []
         head_dtype = torch.promote_types(self.dtype, torch.float32)  # fp32, or fp64
         for part, pooled in zip(PART_NAMES, pools):
