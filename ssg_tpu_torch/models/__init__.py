@@ -3,11 +3,11 @@ SSG Inception and the SSG ViT-B/16 at patch stride 12 (the port's own; the
 JAX package has no transformer), each ending in the same multi-part heads
 (``SSGHeads``)."""
 
+from ssg_tpu_torch.models.heads import SSGHeads
 from ssg_tpu_torch.models.inception import SSGInception, inception
 from ssg_tpu_torch.models.resnet import (
     BasicBlock,
     Bottleneck,
-    SSGHeads,
     SSGResNet,
     resnet18,
     resnet34,

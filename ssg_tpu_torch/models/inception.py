@@ -2,14 +2,14 @@
 
 Counterpart of ``ssg_tpu/models/inception.py``: a conv stem (/4) followed by
 inception blocks that mix 1x1 / 3x3 / double-3x3 / pooled branches, ending
-in the SSG multi-part heads (``models.resnet.SSGHeads``: whole / upper /
+in the SSG multi-part heads (``models.heads.SSGHeads``: whole / upper /
 lower pooled embeddings, the same output contract as ``SSGResNet``).
 
 * Public input is NHWC float; inside, the network runs NCHW (channels-last
   on the card), as ``SSGResNet`` does.
-* Every conv is ``models.resnet.Conv2d`` (an fp32 master cast to the
+* Every conv is ``models.layers.Conv2d`` (an fp32 master cast to the
   activation type at each call, ``k // 2`` padding) and every BatchNorm
-  ``models.resnet.BatchNorm2d`` (Flax's biased running variance), both in
+  ``models.layers.BatchNorm2d`` (Flax's biased running variance), both in
   the model's ``dtype``, as Flax runs its branch convs and BNs in the
   module dtype; the heads run in fp32.
 * Pooling: a stride-1 block's pool branch is a 3x3/1 average pool with pad
@@ -22,17 +22,16 @@ lower pooled embeddings, the same output contract as ``SSGResNet``).
   ``feat_bn_whole``), so ``models.convert.from_jax_variables`` maps the
   JAX variables one to one.
 * ``remat`` (``forward(x, remat=True)``): each inception block runs under
-  ``torch.utils.checkpoint``, with the same recomputation rule for its
-  BatchNorms as the ResNet's residual blocks (``models.resnet.recomputing``).
+  ``models.layers.remat_block``, the rule every backbone's blocks share.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from ssg_tpu_torch.models.resnet import BatchNorm2d, Conv2d, SSGHeads, _checkpoint_contexts
+from ssg_tpu_torch.models.heads import SSGHeads
+from ssg_tpu_torch.models.layers import BatchNorm2d, Conv2d, remat_block
 
 
 class _ConvBN(nn.Module):
@@ -109,11 +108,8 @@ class SSGInception(SSGHeads):
     def forward(self, x, remat: bool = False) -> dict[str, torch.Tensor]:
         x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC -> NCHW view
         x = self.stem_pool(self.stem3(self.stem2(self.stem1(x))))
-        remat = remat and torch.is_grad_enabled()
         for i in range(self.depth):
-            blk = getattr(self, f"block{i}")
-            x = (checkpoint(blk, x, use_reentrant=False, preserve_rng_state=True,
-                            context_fn=_checkpoint_contexts) if remat else blk(x))
+            x = remat_block(getattr(self, f"block{i}"), x, remat)
         return self._heads(x)
 
 

@@ -11,20 +11,9 @@ half, lower half — each with its own head.
   0.9 from the other side); 3x3/2 max-pool with pad 1; stage strides
   ``1, 2, 2, last_stride``.
 * ``dtype``: the backbone's convolutions compute in ``dtype`` (bf16 runs
-  with fp32 accumulation). Every weight is an fp32 master, as Flax keeps
-  its parameters: ``Conv2d`` casts it to the activation type at each call,
-  so the optimizer updates fp32 values. BatchNorm normalises the narrower
-  activation in fp32 (PyTorch's mixed-type batch norm), as Flax does before
-  casting back. The heads run in fp32 (in fp64 for an fp64 model, which
-  serves as an exact reference).
-* ``BatchNorm2d`` / ``BatchNorm1d`` update their running variance with the
-  biased batch variance, as Flax does; PyTorch's own use the unbiased one.
-  Inside ``data_parallel(mesh)`` (the data-parallel train step) a
-  train-mode BatchNorm takes its statistics over the global batch, the
-  ranks' slices together, as JAX's SPMD step does on the whole batch: one
-  all-reduce of the sums for the mean, one of the squared deviations for
-  the variance, both differentiable, and the global row count in the
-  biased running update.
+  with fp32 accumulation) on fp32 masters, and its BatchNorms keep Flax's
+  running variance (``models.layers``); the heads run in fp32
+  (``models.heads``).
 * Module names follow torchvision (``backbone.layer1.0.conv1``,
   ``downsample.0/1``, ``feat_whole``, ``feat_bn_whole``,
   ``classifier_whole``), so ``models/convert.py`` maps the JAX variables
@@ -33,14 +22,8 @@ half, lower half — each with its own head.
   ``BasicBlock`` (resnet18/34, expansion 1); a block builds its downsample
   only where the residual's shape differs, as JAX's do.
 * ``remat`` (``forward(x, remat=True)``, the train step's option): each
-  residual block runs under ``torch.utils.checkpoint``, so the backward
-  pass recomputes the block's inner activations from its saved input. A
-  block is the granularity that saves memory: one checkpoint around the
-  whole model would keep its recomputation's activations alive as long.
-  The recomputation re-runs train-mode BatchNorm; ``recomputing`` makes
-  each BN normalise with the batch statistics there and leave its running
-  statistics (and Flax's correction) alone, so the statistics move once a
-  step, as without remat.
+  residual block runs under ``models.layers.remat_block``, which recomputes
+  the block's inner activations in the backward pass.
 * ``fused_eval`` (off by default, as in JAX): in eval mode each identity
   bottleneck (stride 1, ``cin == 4 * features``) folds its BatchNorms into
   the conv weights and runs ``ops.bottleneck.fused_bottleneck`` (the CUDA
@@ -59,165 +42,14 @@ half, lower half — each with its own head.
 
 from __future__ import annotations
 
-import contextlib
-import threading
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
+from ssg_tpu_torch.models.heads import SSGHeads
+from ssg_tpu_torch.models.layers import BatchNorm2d, Conv2d, remat_block
 from ssg_tpu_torch.ops.bottleneck import fold_bn, fused_bottleneck
-
-PART_NAMES = ("whole", "up", "down")
-
-_state = threading.local()  # .recomputing: inside a checkpoint's recomputation
-# The data-parallel step's mesh, while it runs. A process-wide value, not a
-# thread's: on the card the backward pass (and with it remat's
-# recomputation) runs on autograd's device thread.
-_dp = {"mesh": None}
-
-
-@contextlib.contextmanager
-def data_parallel(mesh):
-    """BatchNorms take global-batch statistics over ``mesh`` (a mesh of more
-    than one rank) for the ``with`` block: the train step's forward and
-    backward."""
-    _dp["mesh"] = mesh if mesh is not None and mesh.size > 1 else None
-    try:
-        yield
-    finally:
-        _dp["mesh"] = None
-
-
-def _global_batch_norm(x, weight, bias, eps: float, mesh):
-    """Train-mode batch norm over the global batch of equal rank slices:
-    (output in ``x``'s type, the global mean, the biased variance), in fp32
-    and differentiable through the two all-reduces."""
-    from ssg_tpu_torch.parallel.ring import all_reduce_sum_autograd
-
-    c = x.shape[1]
-    dims = [0] + list(range(2, x.dim()))
-    shape = [1, c] + [1] * (x.dim() - 2)
-    xf = x.float()
-    n = x.numel() // c * mesh.size
-    mean = all_reduce_sum_autograd(mesh, xf.sum(dims)) / n
-    xc = xf - mean.view(shape)
-    var = all_reduce_sum_autograd(mesh, (xc * xc).sum(dims)) / n
-    y = xc * torch.rsqrt(var + eps).view(shape) * weight.view(shape) + bias.view(shape)
-    return y.to(x.dtype), mean.detach(), var.detach()
-
-
-@contextlib.contextmanager
-def recomputing():
-    """Marks a checkpoint's recomputation (the backward pass may run it on
-    another thread than the forward, hence the thread-local flag)."""
-    _state.recomputing = True
-    try:
-        yield
-    finally:
-        _state.recomputing = False
-
-
-def _checkpoint_contexts():
-    return contextlib.nullcontext(), recomputing()
-
-
-def cast_masters(module: nn.Module, dtype: torch.dtype) -> tuple:
-    """``module``'s fp32 master ``weight`` and ``bias`` (None or a tensor)
-    cast to ``dtype``. The cast is differentiable, so gradients reach the
-    masters. Without autograd (an eval extract) the copies are cached on the
-    module until a master is replaced or changed in place (its
-    ``_version``)."""
-    params = module._parameters  # dict reads, not Module.__getattr__: once a layer a call
-    w, b = params["weight"], params["bias"]
-    if w.dtype == dtype:
-        return w, b
-    if torch.is_grad_enabled():
-        return w.to(dtype), None if b is None else b.to(dtype)
-    key = (dtype, w.data_ptr(), w._version, None if b is None else (b.data_ptr(), b._version))
-    c = module._cast_cache
-    if c is None or c[0] != key:
-        c = module._cast_cache = (key, w.to(dtype), None if b is None else b.to(dtype))
-    return c[1], c[2]
-
-
-class Conv2d(nn.Conv2d):
-    """Bias-free convolution, ``k // 2`` padding, with an fp32 master weight
-    cast to the input's type at each call (Flax's ``nn.Conv`` with its
-    default fp32 ``param_dtype``; ``cast_masters``)."""
-
-    _cast_cache = None
-
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1):
-        super().__init__(cin, cout, k, stride, padding=k // 2, bias=False)
-
-    def cast_weight(self, dtype: torch.dtype) -> torch.Tensor:
-        return cast_masters(self, dtype)[0]
-
-    def forward(self, x):
-        return F.conv2d(x, self.cast_weight(x.dtype), None, self.stride, self.padding)
-
-
-class _FlaxRunningVariance:
-    """Batch norm with momentum 0.1 and Flax's running statistics.
-
-    Train mode normalises with the batch statistics, as PyTorch's batch
-    norm does, but leaves the biased batch variance in the running variance
-    (Flax's update), where PyTorch leaves the unbiased one: n / (n - 1)
-    larger, 6.7 % at a batch of 16 rows. With r the running variance
-    before, m the momentum and u the unbiased variance that PyTorch wrote,
-    the biased update is ``(1 - m) r + m u (n - 1) / n``, which is
-    ``r' (n - 1) / n + (1 - m) r / n`` of PyTorch's result r'. The
-    correction goes through ``.data``, as PyTorch's own update does not
-    bump the running variance's version either: its backward saved it.
-    ``num_batches_tracked`` (PyTorch's counter for a cumulative average)
-    is not kept: the momentum is fixed. Eval mode normalises with the
-    running statistics. Both call ``F.batch_norm`` directly. Inside a
-    checkpoint's recomputation (``recomputing``) it normalises with the
-    batch statistics and updates none of the module's. Inside
-    ``data_parallel`` the batch statistics are the global batch's
-    (``_global_batch_norm``), in the recomputation too."""
-
-    _recompute_stats = None  # (mean, var) scratch for the recomputation
-
-    def forward(self, x):
-        if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                                False, 0.0, self.eps)
-        mesh = _dp["mesh"]
-        if mesh is not None:
-            out, mean, var = _global_batch_norm(x, self.weight, self.bias, self.eps, mesh)
-            if not getattr(_state, "recomputing", False):
-                with torch.no_grad():
-                    self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
-                    self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
-            return out
-        if getattr(_state, "recomputing", False):
-            # The saved tensors must match the forward's, so the call keeps
-            # its running statistics, as scratch ones that momentum 0 leaves
-            # as they are: the same kernel, the same outputs.
-            scratch = self._recompute_stats
-            if scratch is None or scratch[0].device != x.device:
-                scratch = self._recompute_stats = (torch.zeros_like(self.running_mean),
-                                                   torch.ones_like(self.running_var))
-            return F.batch_norm(x, *scratch, self.weight, self.bias, True, 0.0, self.eps)
-        n = x.numel() // x.shape[1]
-        rv = self.running_var.data
-        before = rv * ((1.0 - self.momentum) / n)
-        out = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                           True, self.momentum, self.eps)
-        torch.add(before, rv, alpha=(n - 1) / n, out=rv)
-        return out
-
-
-class BatchNorm2d(_FlaxRunningVariance, nn.BatchNorm2d):
-    pass
-
-
-class BatchNorm1d(_FlaxRunningVariance, nn.BatchNorm1d):
-    pass
 
 
 class BasicBlock(nn.Module):
@@ -332,96 +164,10 @@ class ResNetBackbone(nn.Module):
 
     def forward(self, x, remat: bool = False):
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
-        remat = remat and torch.is_grad_enabled()
         for stage in range(self.num_stages):
             for blk in getattr(self, f"layer{stage + 1}"):
-                x = (checkpoint(blk, x, use_reentrant=False, preserve_rng_state=True,
-                                context_fn=_checkpoint_contexts) if remat else blk(x))
+                x = remat_block(blk, x, remat)
         return x  # (B, C, h, w) conv5 feature map
-
-
-class SSGHeads(nn.Module):
-    """The SSG multi-part heads that every backbone ends in (``SSGResNet``,
-    ``models.inception.SSGInception``, ``models.vit.SSGViT``), and their
-    random initialisation.
-
-    ``_heads(fmap)`` pools the (B, C, h, w) feature map three ways
-    (``_pool``: whole map, upper half, lower half) and projects each part
-    (``_project``, which a backbone that pools its own way calls with its
-    (B, C) parts, as ``models.vit.SSGViT`` does). The result is a dict:
-    ``"embeddings"`` (num_parts, B, F), raw in train mode (the triplet
-    loss's input) and L2-normalised in eval mode when ``norm`` is set; and
-    ``"logits"`` (num_parts, B, num_classes) when ``num_classes > 0``. ``F``
-    (``embedding_dim``) is ``num_features`` or, when that is 0, the
-    backbone's channel count. Dropout (``dropout > 0``, train mode) applies
-    after each part's BatchNorm and feeds only the classifier; the
-    embedding is taken before it. The heads run in fp32 (in fp64 for an
-    fp64 model, which serves as an exact reference).
-    """
-
-    def _add_heads(self, width: int, num_features: int, dropout: float, num_classes: int,
-                   num_parts: int, norm: bool, dtype: torch.dtype) -> None:
-        self.num_parts = num_parts
-        self.norm = norm
-        self.dtype = dtype
-        self.num_features = num_features
-        self.num_classes = num_classes
-        self.embedding_dim = num_features or width
-        self.drop = nn.Dropout(dropout) if dropout > 0 else nn.Identity()
-        for part in PART_NAMES[:num_parts]:
-            if num_features > 0:
-                self.add_module(f"feat_{part}", nn.Linear(width, num_features))
-            self.add_module(f"feat_bn_{part}", BatchNorm1d(self.embedding_dim, eps=1e-5))
-            if num_classes > 0:
-                self.add_module(f"classifier_{part}", nn.Linear(self.embedding_dim, num_classes))
-
-    @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator):
-        """Random weights from ``generator``: convs and linears normal with
-        variance 1/fan_in (LeCun, as Flax's default), biases 0, BN identity."""
-        for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                w = m.weight
-                std = (w[0].numel()) ** -0.5
-                w.copy_(torch.randn(w.shape, generator=generator) * std)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.modules.batchnorm._BatchNorm):
-                m.reset_parameters()
-        return self
-
-    def _heads(self, fmap: torch.Tensor) -> dict[str, torch.Tensor]:
-        return self._project(self._pool(fmap))
-
-    def _pool(self, fmap: torch.Tensor) -> list[torch.Tensor]:
-        """The (B, C, h, w) map's parts, each (B, C): whole, upper, lower."""
-        h = fmap.shape[2]
-        # max(h // 2, 1): a height-1 map would leave the upper slice empty.
-        return [
-            fmap.mean((2, 3)),
-            fmap[:, :, :max(h // 2, 1)].mean((2, 3)),
-            fmap[:, :, h // 2:].mean((2, 3)),
-        ][:self.num_parts]
-
-    def _project(self, pools: list[torch.Tensor]) -> dict[str, torch.Tensor]:
-        """Each part's (B, C) pooled features through its heads."""
-        embeddings, logits = [], []
-        head_dtype = torch.promote_types(self.dtype, torch.float32)  # fp32, or fp64
-        for part, pooled in zip(PART_NAMES, pools):
-            y = pooled.to(head_dtype)
-            if self.num_features > 0:
-                y = getattr(self, f"feat_{part}")(y)
-            y = getattr(self, f"feat_bn_{part}")(y)
-            emb = y
-            if not self.training and self.norm:
-                emb = emb / emb.norm(dim=1, keepdim=True).clamp_min(1e-12)
-            if self.num_classes > 0:
-                logits.append(getattr(self, f"classifier_{part}")(self.drop(y)))
-            embeddings.append(emb)
-        out = {"embeddings": torch.stack(embeddings)}
-        if logits:
-            out["logits"] = torch.stack(logits)
-        return out
 
 
 class SSGResNet(SSGHeads):

@@ -3,7 +3,7 @@
 The transformer backbone that person re-ID adapts (TransReID, He et al.
 2021, arXiv:2102.04378; TransReID-SSL, Luo et al. 2021, arXiv:2111.12084,
 runs it through the same cluster-then-fine-tune loop as SSG), ending in the
-heads every backbone of the port shares (``models.resnet.SSGHeads``). The
+heads every backbone of the port shares (``models.heads.SSGHeads``). The
 JAX package has no counterpart.
 
 * ViT-Base (Dosovitskiy et al. 2020, arXiv:2010.11929, Table 1): 12
@@ -29,7 +29,7 @@ JAX package has no counterpart.
 * Precision, for ``dtype=torch.bfloat16``: the patch convolution, every
   linear and attention's two products run on bf16 operands with fp32
   accumulation, from fp32 masters cast at each call (cached without
-  autograd until a master changes: ``models.resnet.cast_masters``);
+  autograd until a master changes: ``models.layers.cast_masters``);
   LayerNorm's statistics and the softmax are fp32; the residual stream is
   fp32, as ``torch.autocast(bfloat16)`` keeps it; the heads are fp32. With
   ``dtype=torch.float32`` everything runs in fp32.
@@ -38,7 +38,7 @@ JAX package has no counterpart.
   math route otherwise. There is no fallback: a shape the route cannot take
   raises.
 * ``remat`` (``forward(x, remat=True)``): each block runs under
-  ``torch.utils.checkpoint``.
+  ``models.layers.remat_block``, the rule every backbone's blocks share.
 * Spans (``utils.profiling``): ``vit.embed``, ``vit.block`` (keyed by the
   block's index) and ``vit.heads`` in ``forward``, and the counter
   ``vit.attention.<route>`` once a forward. They record where the forward
@@ -55,9 +55,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.nn.attention import SDPBackend, sdpa_kernel
-from torch.utils.checkpoint import checkpoint
 
-from ssg_tpu_torch.models.resnet import SSGHeads, cast_masters
+from ssg_tpu_torch.models.heads import SSGHeads
+from ssg_tpu_torch.models.layers import cast_masters, remat_block
 from ssg_tpu_torch.utils.profiling import count, span
 
 _ROUTES = {"flash": SDPBackend.FLASH_ATTENTION, "math": SDPBackend.MATH}
@@ -72,7 +72,7 @@ def attention_route(device: torch.device, dtype: torch.dtype) -> str:
 
 class Linear(nn.Linear):
     """A linear layer on an fp32 master weight and bias, cast to the input's
-    type (``models.resnet.cast_masters``)."""
+    type (``models.layers.cast_masters``)."""
 
     _cast_cache = None
 
@@ -223,10 +223,9 @@ class SSGViT(SSGHeads):
         count(f"vit.attention.{attention_route(x.device, self.dtype)}")
         with span("vit.embed"):
             x = vit.embed(x)
-        remat = remat and torch.is_grad_enabled()
         for i, blk in enumerate(vit.blocks):
             with span("vit.block", key=i):
-                x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
+                x = remat_block(blk, x, remat)
         with span("vit.heads"):
             x = vit.norm(x)
             gh, gw = vit.grid

@@ -55,7 +55,7 @@ Data parallel (``mesh`` of P > 1 ranks, ``parallel/mesh.py``): JAX's step
 is the one-device program on the whole batch, split over the mesh, so the
 port's DP step computes that same function. Each rank forwards its slice
 of the batch; the BatchNorms take global-batch statistics
-(``models.resnet.data_parallel``); the embeddings (and logits) are
+(``models.layers.data_parallel``); the embeddings (and logits) are
 gathered with ``parallel.ring.gather_rows``, so the batch-hard triplet
 searches the global batch and the SSG++ cross-entropy divides by the
 global count of labelled rows; the crops and flips are drawn for the
@@ -81,7 +81,7 @@ from ssg_tpu_torch._device import resolve_device
 from ssg_tpu_torch.data import transforms
 from ssg_tpu_torch.data.prefetch import prefetch
 from ssg_tpu_torch.loss.oim import oim_loss
-from ssg_tpu_torch.models.resnet import data_parallel
+from ssg_tpu_torch.models.layers import data_parallel
 from ssg_tpu_torch.ops.triplet import batch_hard_triplet_loss
 from ssg_tpu_torch.parallel.dp import all_reduce_grads, shard_batch
 from ssg_tpu_torch.parallel.ring import gather_rows
@@ -117,9 +117,10 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, margin: float = 0.3
     model's device; the step moves the matched rows in place after the
     optimizer step.
 
-    ``remat``: each residual block recomputes its activations in the
-    backward pass (``models/resnet.py``): less memory for one more forward
-    of the backbone, with the same loss, gradients and BatchNorm statistics.
+    ``remat``: each block of the backbone recomputes its activations in
+    the backward pass (``models.layers.remat_block``): less memory for one
+    more forward of the backbone, with the same loss, gradients and
+    BatchNorm statistics.
 
     ``mesh``: data parallel over its ranks (the module docstring); the
     model must hold the same weights on every rank (``parallel.dp.

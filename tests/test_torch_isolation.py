@@ -47,3 +47,25 @@ def test_import_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_only_the_factory_imports_the_resnets():
+    """The shared layers and heads live in ``models.layers`` and
+    ``models.heads``: no module of the port but ``models/__init__.py``
+    reaches into ``models.resnet`` for them."""
+    package = ROOT / "ssg_tpu_torch"
+    resnet = "ssg_tpu_torch.models.resnet"
+    offenders = []
+    for path in sorted(package.rglob("*.py")):
+        if path == package / "models" / "__init__.py":
+            continue
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module] + [f"{node.module}.{a.name}" for a in node.names]
+            else:
+                continue
+            if resnet in names:
+                offenders.append(str(path.relative_to(ROOT)))
+    assert not offenders, offenders

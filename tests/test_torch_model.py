@@ -16,6 +16,7 @@ from ssg_tpu.data import transforms as jax_transforms
 from ssg_tpu_torch import models
 from ssg_tpu_torch.data import datasets, transforms
 from ssg_tpu_torch.models.convert import from_jax_variables
+from ssg_tpu_torch.models.layers import cast_masters
 
 
 def test_test_transform_exact_for_uint8(rng):
@@ -149,10 +150,10 @@ def test_bf16_model_keeps_fp32_masters_and_computes_bf16(rng):
     # The eval cast is cached until the master changes in place.
     tb.eval()
     with torch.no_grad():
-        first = tb.backbone.conv1.cast_weight(torch.bfloat16)
-        assert tb.backbone.conv1.cast_weight(torch.bfloat16) is first
+        first = cast_masters(tb.backbone.conv1, torch.bfloat16)[0]
+        assert cast_masters(tb.backbone.conv1, torch.bfloat16)[0] is first
         w.mul_(2.0)
-        again = tb.backbone.conv1.cast_weight(torch.bfloat16)
+        again = cast_masters(tb.backbone.conv1, torch.bfloat16)[0]
         assert again is not first and torch.equal(again, w.to(torch.bfloat16))
 
 
