@@ -673,6 +673,25 @@ def check_blocks_at_path_shapes(model, fused, batch) -> tuple[dict, dict]:
     return rows["fused_bottleneck"], rows["fused_bottleneck_stage"]
 
 
+def traced_extract(model, batches, kernel: str) -> tuple:
+    """``api.extract_features``' features under ``profiling.trace``: the
+    features, the extract's seconds (synchronised), the device events of the
+    kernels whose name holds ``kernel``, counted in the trace, and the
+    batches that replayed the extract's CUDA graph. A replayed batch launches
+    its kernels from the graph, which ``ops``' Python launch counters do not
+    see; the trace sees every kernel that ran."""
+    with tempfile.TemporaryDirectory(prefix="ssg_extract_trace_") as logdir:
+        with profiling.trace(logdir):
+            t0 = time.perf_counter()
+            feats = api.extract_features(model, batches)[0]
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        trace = traceview.load_latest(logdir)
+    events = sum(1 for e in trace["traceEvents"]
+                 if e.get("ph") == "X" and e.get("cat") == "kernel" and kernel in e["name"])
+    return feats, seconds, events, profiling.recorded().counters.get(api.EXTRACT_GRAPH_REPLAYS, 0)
+
+
 def fused_eval_path(fused, batches, feats, labels, counts) -> dict:
     """Path 2: the fused-eval extract, then its analytics, timed and checked
     against path 1's embeddings and labels. Returns the launch counts of the
@@ -682,18 +701,17 @@ def fused_eval_path(fused, batches, feats, labels, counts) -> dict:
     torch.cuda.synchronize()
 
     bottleneck.launches = bottleneck_stage.launches = 0
-    t0 = time.perf_counter()
-    f2, _, _, _ = api.extract_features(fused, batches)
-    torch.cuda.synchronize()
-    extract_s = time.perf_counter() - t0
-    launches = bottleneck.launches
+    f2, extract_s, launches, replays = traced_extract(fused, batches, "identity_kernel")
     stage_launches = bottleneck_stage.launches
     t0 = time.perf_counter()
     labels2, counts2, epss2 = api.cluster_groups(f2, **ANALYTICS)
     torch.cuda.synchronize()
     cluster_s = time.perf_counter() - t0
+    print(f"fused-eval extract (traced): {launches} identity_kernel events on the card, "
+          f"{bottleneck.launches} of them launched eagerly; {replays} of {len(batches)} "
+          f"batches replayed the graph")
     check(launches == 12 * len(batches),
-          f"bottleneck kernel launched {launches} times in the timed fused-eval extract, "
+          f"bottleneck kernel ran {launches} times in the timed fused-eval extract, "
           f"expected {12 * len(batches)} (12 identity blocks per batch)")
     cos = (f2 * feats).sum(-1) / (f2.norm(dim=-1) * feats.norm(dim=-1))
     cos_min = float(cos.min())
@@ -702,6 +720,7 @@ def fused_eval_path(fused, batches, feats, labels, counts) -> dict:
     print(json.dumps({
         "path": "fused_eval",
         "fused_eval_extract_seconds": extract_s,
+        "graph_replays": replays,
         "fused_eval_imgs_per_s": N / extract_s,
         "cluster_seconds_3groups": cluster_s,
         "clusters": counts2,
@@ -916,25 +935,25 @@ def fused_eval_fp32_path(dev: torch.device, batches) -> dict:
     api.extract_features(plain, batches)
     torch.cuda.synchronize()
     bottleneck.launches = 0
-    t0 = time.perf_counter()
-    f_fused, _, _, _ = api.extract_features(fused, batches)
-    torch.cuda.synchronize()
-    fused_s = time.perf_counter() - t0
-    launches = bottleneck.launches
+    f_fused, fused_s, convs, replays = traced_extract(fused, batches, "conv_f32_kernel")
+    launches = convs // 3  # three launches of the conv kernel a block
     t0 = time.perf_counter()
     f_plain, _, _, _ = api.extract_features(plain, batches)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    check(launches == 12 * len(batches), f"fp32 fused-eval extract launched the bottleneck "
-                                         f"kernel {launches} times, expected {12 * len(batches)}")
+    check(convs == 36 * len(batches), f"fp32 fused-eval extract ran the conv kernel {convs} "
+                                      f"times, expected {36 * len(batches)} (3 a block)")
     check(f_fused.dtype == torch.float32 and bool(torch.isfinite(f_fused).all()),
           "fp32 fused-eval embeddings bad")
     err = float(((f_fused - f_plain).norm(dim=-1) / f_plain.norm(dim=-1)).max())
     print(f"fp32 fused-eval extract of {sum(len(b[0]) for b in batches)} images: "
-          f"{fused_s:.4f} s ({launches} block launches), unfused {plain_s:.4f} s; "
+          f"{fused_s:.4f} s traced ({convs} conv_f32_kernel events on the card, {launches} "
+          f"blocks, {bottleneck.launches} launched eagerly; {replays} of {len(batches)} batches "
+          f"replayed), unfused {plain_s:.4f} s; "
           f"embeddings within {err:.2e} of the unfused model's")
     check(err <= FP32_REL, f"fp32 fused-eval embeddings off the unfused model's by {err:.2e}")
-    return dict(launches=launches, fused_seconds=fused_s, unfused_seconds=plain_s, rel=err)
+    return dict(launches=launches, graph_replays=replays, fused_seconds=fused_s,
+                unfused_seconds=plain_s, rel=err)
 
 
 def check_operand_conversion(dev: torch.device) -> None:

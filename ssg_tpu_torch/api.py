@@ -13,9 +13,37 @@ its own weights, where the JAX package passes ``(model, variables)``.
 ``extract.batch`` a batch and ``extract.gather``; per group
 ``cluster.dist``, ``cluster.rerank``, ``cluster.eps`` and
 ``cluster.dbscan``, each with its stream time, then ``cluster.readback``.
+
+CUDA graph of the eval forward: on the card, ``extract_features`` replays a
+batch's test transform, backbone and heads, from the uint8 batch to the
+embeddings, as one captured CUDA graph, where the host would launch a few
+hundred kernels a batch. The kernels, dtypes and order of operations are the
+eager forward's. It does so where the batch is on a CUDA device, there is
+no mesh of more than one rank, no ``torch.autocast`` region is active, and
+no module of the model has a forward hook or pre-hook, nor is there a
+global hook (``models.layers.no_hooks``); elsewhere every batch runs eager.
+A batch's signature holds the images' shape, dtype and device, the TF32 and
+cuDNN determinism flags, every parameter's and buffer's ``(data_ptr,
+_version)``, and which caches of derived weights the modules hold
+(``models.layers.derived_caches``: the casts of ``cast_masters``, the
+BatchNorm folds of ``Bottleneck.folded``): the graph reads all of these by
+address. A batch whose signature equals the held graph's replays it; one
+whose signature equals the batch before it captures a graph in place of
+the held one and replays it; any other runs eager, which builds those
+caches and cuDNN's plans. So the first batch of a new signature runs eager,
+the second captures, and later batches and calls with it replay; an
+optimizer step, ``load_state_dict``, ``.to()`` or a train-mode forward
+(which drops the folds) makes the next call capture anew; a ragged last
+batch runs eager and leaves the held graph in place. A model holds at most
+one graph, with its memory pool and static input and output, until
+another capture replaces it or the model is collected. Each replayed batch counts once in the counter
+``extract.graph_replays`` (``EXTRACT_GRAPH_REPLAYS``).
 """
 
 from __future__ import annotations
+
+import itertools
+import weakref
 
 import numpy as np
 import torch
@@ -24,13 +52,14 @@ from ssg_tpu_torch._device import resolve_device
 from ssg_tpu_torch.cluster import dbscan, select_eps
 from ssg_tpu_torch.data import transforms
 from ssg_tpu_torch.data.preprocessor import Preprocessor
+from ssg_tpu_torch.models.layers import derived_caches, no_hooks
 from ssg_tpu_torch.ops.distance import pairwise_distance
 from ssg_tpu_torch.ops.metrics import rank_stats
 from ssg_tpu_torch.ops.rerank import _re_ranking_impl, re_ranking
 from ssg_tpu_torch.parallel import streaming_rerank_eval
 from ssg_tpu_torch.parallel.dp import shard_batch
 from ssg_tpu_torch.parallel.ring import all_gather
-from ssg_tpu_torch.utils.profiling import span
+from ssg_tpu_torch.utils.profiling import count, span
 
 __all__ = ["extract_features", "re_ranking", "cluster", "cluster_groups", "train",
            "pairwise_distance", "evaluate_all", "Evaluator"]
@@ -40,10 +69,79 @@ __all__ = ["extract_features", "re_ranking", "cluster", "cluster_groups", "train
 DENSE_RERANK_BYTES = 2**30
 
 
+EXTRACT_GRAPH_REPLAYS = "extract.graph_replays"  # the counter of replayed extract batches
+
+
 @torch.no_grad()
 def _forward_eval(model, images_u8: torch.Tensor) -> torch.Tensor:
     """uint8 NHWC batch -> (num_parts, B, F) L2-normalised embeddings."""
     return model(transforms.test_transform(images_u8))["embeddings"]
+
+
+def _graphable(model, device: torch.device, multi: bool) -> bool:
+    """Whether a replay would run what the eager forward runs: on the card,
+    without a mesh of ranks, outside ``torch.autocast`` (whose casts and
+    their cache a capture would bake in) and without a hook a replay would
+    skip."""
+    return (device.type == "cuda" and not multi and not torch.is_autocast_enabled("cuda")
+            and no_hooks(model.modules()))
+
+
+def _model_signature(model) -> tuple:
+    """What a captured forward bakes in besides its input: the flags that
+    choose its kernels, the address and version of every tensor it reads,
+    and which cached casts and folds it reads (by identity)."""
+    return (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            torch.backends.cudnn.deterministic,
+            tuple((t.data_ptr(), t._version)
+                  for t in itertools.chain(model.parameters(), model.buffers())),
+            tuple(id(c) for c in derived_caches(model)))
+
+
+class _EvalGraph:
+    """One model's captured eval forward: a static uint8 input, the graph
+    and its static embeddings, with the signature it was captured on, and
+    the signature of the batch that ran last."""
+
+    def __init__(self):
+        self.last = None
+        self.free()
+
+    def free(self):
+        # caches: the cached casts and folds the graph reads, kept alive so
+        # that no new cache takes the identity of one it was captured on.
+        self.signature = self.graph = self.images = self.out = self.caches = None
+
+    def forward(self, model, x: torch.Tensor, model_sig: tuple) -> tuple:
+        """``(embeddings, model_sig)`` of batch ``x``: replayed, captured
+        and replayed, or eager (then the model's signature anew, as the
+        eager forward may have built caches)."""
+        sig = (tuple(x.shape), x.dtype, x.device, model_sig)
+        if sig != self.signature:
+            if sig != self.last:
+                emb = _forward_eval(model, x)
+                model_sig = _model_signature(model)
+                self.last = sig[:3] + (model_sig,)
+                return emb, model_sig
+            self._capture(model, x, sig)
+        self.last = sig
+        self.images.copy_(x)
+        self.graph.replay()
+        count(EXTRACT_GRAPH_REPLAYS)
+        return self.out.clone(), model_sig  # callers keep results: each its own
+
+    def _capture(self, model, x: torch.Tensor, sig: tuple):
+        self.free()  # the old graph's pool goes before the new one fills
+        images, graph = torch.empty_like(x), torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream(x.device),
+                              capture_error_mode="thread_local"):
+            out = _forward_eval(model, images)
+        self.signature, self.graph, self.images, self.out = sig, graph, images, out
+        self.caches = derived_caches(model)
+
+
+# model -> its _EvalGraph; weak, so that a graph goes with its model.
+_eval_graphs: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
 def extract_features(model, batches, device=None, mesh=None):
@@ -62,18 +160,36 @@ def extract_features(model, batches, device=None, mesh=None):
     rank forwards its slice of every batch (the batch must divide by the
     mesh's size) and the embeddings are all-gathered in batch order, so
     every rank returns the whole result, on the mesh's device.
+
+    On the card, without a mesh of ranks, autocast or hooks, a batch
+    replays a CUDA graph of the test transform and the forward when its
+    signature (the images' shape, dtype and device; the TF32 and cuDNN
+    determinism flags; every parameter's and buffer's address and version;
+    the cached casts and folds) equals the held graph's; the first batch of
+    a signature runs eager and the second captures the graph (module
+    docstring). The
+    weights' part of the signature is taken once a call and again after an
+    eager batch, which may build caches. The counter
+    ``extract.graph_replays`` counts the replayed batches. Replayed and
+    eager batches give the same embeddings.
     """
     dev = resolve_device(device) if mesh is None else mesh.device
     multi = mesh is not None and mesh.size > 1
     chunks, pids, cams, masks = [], [], [], []
     was_training = model.training
     model.eval()
+    graph = _eval_graphs.setdefault(model, _EvalGraph()) if _graphable(model, dev, multi) else None
+    model_sig = None if graph is None else _model_signature(model)
     try:
         for b, (images, p, c, mask) in enumerate(batches):
             with span("extract.batch", key=b):
                 if multi:
                     images = shard_batch(mesh, images)
-                emb = _forward_eval(model, torch.as_tensor(images, device=dev))
+                x = torch.as_tensor(images, device=dev)
+                if graph is None:
+                    emb = _forward_eval(model, x)
+                else:
+                    emb, model_sig = graph.forward(model, x, model_sig)
                 chunks.append(all_gather(mesh, emb.transpose(0, 1).contiguous()).transpose(0, 1)
                               if multi else emb)
                 pids.append(np.asarray(p))

@@ -29,12 +29,21 @@ import torch.nn.functional as F
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+_STATS: dict = {}  # device -> (mean, std), built once a device by _stats
 
 
-def _stats(device):
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device)
-    return mean, std
+def _stats(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ImageNet mean and std as fp32 tensors on ``device``, built on a
+    device's first call and the same tensors on every later one: building
+    them copies from pageable host memory, which waits for the device and
+    which a CUDA graph cannot capture. Callers only read them."""
+    device = torch.device(device)
+    stats = _STATS.get(device)
+    if stats is None:
+        stats = _STATS[device] = (
+            torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
+            torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
+    return stats
 
 
 def normalize(images_u8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -54,9 +63,8 @@ def rect_scale(images: torch.Tensor, height: int, width: int) -> torch.Tensor:
 
 def normalize_float(x: torch.Tensor, dtype, stats=None) -> torch.Tensor:
     """Float pixels on the 0..255 scale -> ImageNet-normalised ``dtype``.
-    ``stats``: the ``(mean, std)`` of ``_stats(x.device)``, built once by
-    a caller that normalises every step (building them copies from the host
-    and waits for the copy, which a CUDA graph cannot capture)."""
+    ``stats``: the ``(mean, std)`` of ``_stats(x.device)``, which it takes
+    when none are given."""
     mean, std = _stats(x.device) if stats is None else stats
     return ((x / 255.0 - mean) / std).to(dtype)
 

@@ -34,6 +34,7 @@ import threading
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.modules import module as nn_module
 from torch.utils.checkpoint import checkpoint
 
 _state = threading.local()  # .recomputing: inside a checkpoint's recomputation
@@ -116,6 +117,35 @@ def cast_masters(module: nn.Module, dtype: torch.dtype) -> tuple:
     if c is None or c[0] != key:
         c = module._cast_cache = (key, w.to(dtype), None if b is None else b.to(dtype))
     return c[1], c[2]
+
+
+# The attributes in which a module caches weights derived from its
+# parameters and buffers for a no-grad forward: ``cast_masters``' casts and
+# ``resnet.Bottleneck.folded``'s BatchNorm folds. A captured CUDA graph reads
+# them by address (``api.extract_features``), so every such cache is named
+# here.
+DERIVED_CACHES = ("_cast_cache", "_fold_cache")
+
+
+def derived_caches(model: nn.Module) -> list:
+    """The caches of derived weights (``DERIVED_CACHES``) that the modules
+    of ``model`` hold now, each a tuple that is replaced when rebuilt."""
+    return [c for m in model.modules() for c in map(vars(m).get, DERIVED_CACHES)
+            if c is not None]
+
+
+def no_hooks(modules, backward: bool = False) -> bool:
+    """Whether no module hook would run in a forward of ``modules`` (e.g.
+    ``model.modules()``), nor with ``backward`` in its backward: no global
+    module hook, and no forward hook or pre-hook (backward hook or pre-hook)
+    on any of them. A CUDA graph's replay runs no hook, so a graph replays
+    only where this holds."""
+    if (nn_module._global_forward_hooks or nn_module._global_forward_pre_hooks
+            or nn_module._global_backward_hooks or nn_module._global_backward_pre_hooks):
+        return False
+    return not any(m._forward_hooks or m._forward_pre_hooks
+                   or (backward and (m._backward_hooks or m._backward_pre_hooks))
+                   for m in modules)
 
 
 class Conv2d(nn.Conv2d):

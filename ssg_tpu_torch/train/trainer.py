@@ -75,13 +75,12 @@ from typing import Callable
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.nn.modules import module as nn_module
 
 from ssg_tpu_torch._device import resolve_device
 from ssg_tpu_torch.data import transforms
 from ssg_tpu_torch.data.prefetch import prefetch
 from ssg_tpu_torch.loss.oim import oim_loss
-from ssg_tpu_torch.models.layers import data_parallel
+from ssg_tpu_torch.models.layers import data_parallel, no_hooks
 from ssg_tpu_torch.ops.triplet import batch_hard_triplet_loss
 from ssg_tpu_torch.parallel.dp import all_reduce_grads, shard_batch
 from ssg_tpu_torch.parallel.ring import gather_rows
@@ -165,11 +164,7 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, margin: float = 0.3
         return (dp is None and not remat
                 and all(g.get("capturable", False) and all(q.is_cuda for q in g["params"])
                         for g in optimizer.param_groups)
-                and not (nn_module._global_forward_hooks or nn_module._global_forward_pre_hooks
-                         or nn_module._global_backward_hooks
-                         or nn_module._global_backward_pre_hooks)
-                and not any(m._forward_hooks or m._forward_pre_hooks or m._backward_hooks
-                            or m._backward_pre_hooks for m in modules))
+                and no_hooks(modules, backward=True))
 
     def _imagenet_stats(device):
         if device not in stats:

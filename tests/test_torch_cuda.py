@@ -755,6 +755,128 @@ def test_load_optimizer_state_moves_host_counters_to_the_card(cuda):
     torch.testing.assert_close(q.detach().cpu(), p.detach(), rtol=1e-6, atol=0)
 
 
+# ---- the graphed extract -----------------------------------------------------------
+
+def _extract_twins(cuda, arch="resnet50", **kw):
+    # Two copies of one model with the same weights on the card: the first
+    # extracts through the graph, the second eagerly (a forward pre-hook that
+    # does nothing keeps it off the graph).
+    base = models.create(arch, **kw).reset_parameters(torch.Generator().manual_seed(0))
+    twins = []
+    for graphed in (True, False):
+        model = models.create(arch, **kw)
+        model.load_state_dict(base.state_dict())
+        model.to(cuda, memory_format=torch.channels_last)
+        if not graphed:
+            model.register_forward_pre_hook(lambda mod, args: None)
+        twins.append(model)
+    return twins
+
+
+def _extract_feed(gen, sizes, h=128, w=64):
+    # Host batches of the sizes given, as a Preprocessor yields them (a
+    # smaller last one is ragged); the test transform resizes them.
+    return [(gen.integers(0, 256, size=(n, h, w, 3), dtype=np.uint8), np.arange(n),
+             np.zeros(n), np.ones(n, dtype=bool)) for n in sizes]
+
+
+def _extract(model, feed, cuda):
+    # The features of one extract and the batches it replayed.
+    with profiling.record_spans():
+        feats = api.extract_features(model, feed, device=cuda)[0]
+        torch.cuda.synchronize()
+    return feats, profiling.recorded().counters.get(api.EXTRACT_GRAPH_REPLAYS, 0)
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("resnet50", dict(stage_sizes=(2, 2), fused_eval=False)),
+    ("resnet50", dict(stage_sizes=(2, 2), fused_eval=True)),
+    ("inception", dict(depth=3, width=16)),
+])
+def test_graphed_extract_equals_eager_extract(gen, cuda, arch, kw, monkeypatch):
+    # Two calls over four batches of 8 and a ragged one of 5: in the first
+    # the first batch runs eager, the second captures and replays, the next
+    # two replay; the ragged batch runs eager and leaves the graph to the
+    # second call, which replays all four. Bit for bit the eager twin's, and
+    # the first call's features are its own after the second.
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    graphed, eager = _extract_twins(cuda, arch, num_features=16, dtype=torch.bfloat16, **kw)
+    feed = _extract_feed(gen, (8, 8, 8, 8, 5))
+    firsts = []
+    for want_replays in (3, 4):
+        got, replays = _extract(graphed, feed, cuda)
+        want, none = _extract(eager, feed, cuda)
+        assert (replays, none) == (want_replays, 0)
+        assert got.shape == (3, 37, 16)
+        _same(got, want, "features")
+        firsts.append(got)
+    _same(firsts[0], firsts[1], "the first call's features after the second")
+
+
+@pytest.mark.parametrize("change", ["graphed_steps", "load_state_dict", "bn_statistics"])
+def test_graphed_extract_follows_new_weights(gen, cuda, change, monkeypatch):
+    # An extract before and after the weights change: graphed train steps
+    # (their replays bump the versions), load_state_dict, or a train-mode
+    # forward, which moves only the BatchNorm statistics and drops the
+    # fused-eval folds. The call after the change runs its first batch eager
+    # and captures anew, and equals a fresh model's eager extract of the same
+    # state.
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    kw = dict(stage_sizes=(2, 2), num_features=16, num_classes=4, dtype=torch.bfloat16,
+              fused_eval=True)
+    model, _, step, _ = _graph_twins(cuda, lr=1e-2, stage_sizes=(2, 2), fused_eval=True)[0]
+    feed = _extract_feed(gen, (8, 8, 8))
+    before, replays = _extract(model, feed, cuda)
+    assert replays == 2
+    if change == "graphed_steps":
+        _run_steps(step, _graph_batches(gen, cuda, 4))
+    elif change == "load_state_dict":
+        other = models.create("resnet50", **kw).reset_parameters(torch.Generator().manual_seed(1))
+        model.load_state_dict(other.state_dict())
+    else:
+        with torch.no_grad():
+            model.train()(transforms.test_transform(torch.from_numpy(feed[0][0]).to(cuda)))
+    after, replays = _extract(model, feed, cuda)
+    assert replays == 2
+    fresh = models.create("resnet50", **kw)
+    fresh.load_state_dict(model.state_dict())
+    fresh.to(cuda, memory_format=torch.channels_last)
+    fresh.register_forward_pre_hook(lambda mod, args: None)
+    want, none = _extract(fresh, feed, cuda)
+    assert none == 0
+    assert not torch.equal(after, before)  # the change moved the features
+    _same(after, want, "fresh model")
+
+
+def test_extract_with_a_hook_stays_eager(gen, cuda):
+    # A forward hook would be skipped by a replay: the model runs eager, the
+    # hook fires on every batch of every call and nothing replays.
+    model = models.create("resnet50", stage_sizes=(1, 1), num_features=16)
+    model.reset_parameters(torch.Generator().manual_seed(0)).to(cuda)
+    rows = []
+    block = model.backbone.layer1[0]  # the backbone calls its blocks, not the stage
+    block.register_forward_hook(lambda mod, args, out: rows.append(out.shape[0]))
+    feed = _extract_feed(gen, (8, 8, 8))
+    for _ in range(2):
+        feats, replays = _extract(model, feed, cuda)
+        assert replays == 0 and bool(torch.isfinite(feats).all())
+    assert rows == [8] * 6
+
+
+def test_extract_under_autocast_stays_eager(gen, cuda):
+    # Inside torch.autocast a capture would bake in autocast's casts and
+    # their cache: every batch runs eager and nothing replays. Outside it the
+    # same model captures on its second batch and replays from then on.
+    model = models.create("resnet50", stage_sizes=(1, 1), num_features=16)
+    model.reset_parameters(torch.Generator().manual_seed(0)).to(cuda)
+    feed = _extract_feed(gen, (8, 8, 8))
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        feats, replays = _extract(model, feed, cuda)
+    assert replays == 0 and bool(torch.isfinite(feats).all())
+    assert model not in api._eval_graphs
+    assert _extract(model, feed, cuda)[1] == 2
+
+
 def _clustered(gen, n, ids, dim):
     centers = gen.normal(size=(ids, dim))
     x = centers[np.sort(gen.integers(0, ids, n))] + 0.3 * gen.normal(size=(n, dim))

@@ -16,7 +16,7 @@ from ssg_tpu.data import transforms as jax_transforms
 from ssg_tpu_torch import models
 from ssg_tpu_torch.data import datasets, transforms
 from ssg_tpu_torch.models.convert import from_jax_variables
-from ssg_tpu_torch.models.layers import cast_masters
+from ssg_tpu_torch.models.layers import cast_masters, derived_caches, no_hooks
 
 
 def test_test_transform_exact_for_uint8(rng):
@@ -155,6 +155,68 @@ def test_bf16_model_keeps_fp32_masters_and_computes_bf16(rng):
         w.mul_(2.0)
         again = cast_masters(tb.backbone.conv1, torch.bfloat16)[0]
         assert again is not first and torch.equal(again, w.to(torch.bfloat16))
+
+
+def test_derived_caches_are_the_casts_and_folds_held_now(rng):
+    # A no-grad eval forward of a bf16 fused-eval model builds a fold of
+    # each identity block and a cast of every other conv's master;
+    # derived_caches lists exactly those objects. A train-mode forward drops
+    # the folds (the blocks' own convs run and cast then), and a cast is
+    # rebuilt once its master changes.
+    tb = models.create("resnet50", stage_sizes=(2, 2), num_features=8, dtype=torch.bfloat16,
+                       fused_eval=True)
+    assert derived_caches(tb) == []
+    x = torch.from_numpy(rng.normal(size=(2, 128, 64, 3)).astype(np.float32))
+    with torch.no_grad():
+        tb.eval()(x)
+    idents = [tb.backbone.layer1[1], tb.backbone.layer2[1]]
+    folded = {id(m) for b in idents for m in b.modules()}
+    convs = [m for m in tb.modules() if isinstance(m, torch.nn.Conv2d)]
+    assert all(m._cast_cache is None for m in convs if id(m) in folded)
+    casts = [m._cast_cache for m in convs if id(m) not in folded]
+    folds = [b._fold_cache for b in idents]
+    assert all(c is not None for c in casts + folds)
+    got = derived_caches(tb)
+    assert len(got) == len(casts) + 2
+    assert {id(c) for c in got} == {id(c) for c in casts + folds}
+    with torch.no_grad():
+        tb.train()(x)
+    ids = {id(c) for c in derived_caches(tb)}  # the identity blocks' convs cast now too
+    assert all(id(c) in ids for c in casts) and not any(id(f) in ids for f in folds)
+    with torch.no_grad():
+        tb.backbone.conv1.weight.mul_(2.0)
+        tb.eval()(x)
+    ids = {id(c) for c in derived_caches(tb)}
+    assert id(tb.backbone.conv1._cast_cache) in ids and id(casts[0]) not in ids
+
+
+@pytest.mark.parametrize("kind", ["forward", "forward_pre", "backward", "backward_pre",
+                                  "global_forward", "global_forward_pre", "global_backward"])
+def test_no_hooks_sees_the_hooks_a_replay_would_skip(kind):
+    # A hook on any module, or a global one, is seen; a module's backward
+    # hooks only where the backward counts too. Once removed, none is.
+    from torch.nn.modules import module as nn_module
+    tm = models.create("resnet50", stage_sizes=(1, 1), num_features=0)
+    leaf = tm.backbone.layer1[0].conv2
+    assert no_hooks(tm.modules()) and no_hooks(tm.modules(), backward=True)
+    handle = {
+        "forward": lambda: leaf.register_forward_hook(lambda m, a, o: None),
+        "forward_pre": lambda: leaf.register_forward_pre_hook(lambda m, a: None),
+        "backward": lambda: leaf.register_full_backward_hook(lambda m, gi, go: None),
+        "backward_pre": lambda: leaf.register_full_backward_pre_hook(lambda m, go: None),
+        "global_forward": lambda: nn_module.register_module_forward_hook(lambda m, a, o: None),
+        "global_forward_pre": lambda: nn_module.register_module_forward_pre_hook(
+            lambda m, a: None),
+        "global_backward": lambda: nn_module.register_module_full_backward_hook(
+            lambda m, gi, go: None),
+    }[kind]()
+    try:
+        forward_seen = kind not in ("backward", "backward_pre")
+        assert no_hooks(tm.modules()) is not forward_seen
+        assert not no_hooks(tm.modules(), backward=True)
+    finally:
+        handle.remove()
+    assert no_hooks(tm.modules()) and no_hooks(tm.modules(), backward=True)
 
 
 # The classifier heads and dropout: logits in eval and train mode (dropout

@@ -19,8 +19,9 @@ from ssg_tpu.data import datasets as jax_datasets
 from ssg_tpu.data.preprocessor import Preprocessor as JaxPreprocessor
 
 from ssg_tpu_torch import api, models, resolve_device
-from ssg_tpu_torch.data import Preprocessor, datasets
+from ssg_tpu_torch.data import Preprocessor, datasets, transforms
 from ssg_tpu_torch.models.convert import from_jax_variables
+from ssg_tpu_torch.utils import profiling
 
 KW = dict(k1=20, k2=6, lambda_value=0.1, rho=0.02, min_samples=4)
 ROOT = Path(__file__).resolve().parent.parent
@@ -87,6 +88,47 @@ def test_images_to_labels_with_carried_weights():
     # features here are near-duplicates, so eps (~1e-4) is a cancellation
     # residue with an absolute fp32 error of ~1e-7.
     np.testing.assert_allclose(ours[2], ref[2], rtol=0, atol=1e-6)
+
+
+def test_cpu_extract_stays_eager_and_matches_jax():
+    # On the CPU no batch replays a graph and no graph state is kept: two
+    # calls on the same weights (three batches, the last padded) count no
+    # replay, give the same features, and equal JAX's.
+    ds = datasets.create("market1501", scale="tiny", seed=2)
+    items = ds.train[:40]
+    fm = jax_models.SSGResNet(stage_sizes=(1, 1), num_features=0, num_parts=3,
+                              dtype=jnp.float32, precision=jax.lax.Precision.HIGHEST)
+    variables = fm.init(jax.random.PRNGKey(1), jnp.zeros((1, 256, 128, 3)), train=False)
+    jfeats = jax_api.extract_features(
+        fm, variables, JaxPreprocessor(jax_datasets.create("market1501", scale="tiny", seed=2),
+                                       items=items, batch_size=16))[0]
+    tm = models.create("resnet50", stage_sizes=(1, 1), num_features=0)
+    tm.load_state_dict(from_jax_variables(jax.tree.map(np.asarray, variables)))
+    runs = []
+    for _ in range(2):
+        with profiling.record_spans():
+            feats = api.extract_features(tm, Preprocessor(ds, items=items, batch_size=16),
+                                         device="cpu")[0]
+        rec = profiling.recorded()
+        assert len(rec.of("extract.batch")) == 3
+        assert rec.counters.get(api.EXTRACT_GRAPH_REPLAYS, 0) == 0
+        runs.append(feats)
+    assert tm not in api._eval_graphs
+    assert torch.equal(runs[0], runs[1])
+    np.testing.assert_allclose(runs[0].numpy(), np.asarray(jfeats), rtol=0, atol=1e-5)
+
+
+def test_imagenet_stats_are_built_once_a_device():
+    # The ImageNet statistics exactly as published, in fp32, the same tensors
+    # on every call for a device, and what normalize divides by.
+    mean, std = transforms._stats(torch.device("cpu"))
+    assert mean.dtype == std.dtype == torch.float32 and mean.device.type == "cpu"
+    assert torch.equal(mean, torch.tensor(transforms.IMAGENET_MEAN, dtype=torch.float32))
+    assert torch.equal(std, torch.tensor(transforms.IMAGENET_STD, dtype=torch.float32))
+    again = transforms._stats("cpu")
+    assert again[0] is mean and again[1] is std
+    x = torch.arange(2 * 3 * 2 * 3, dtype=torch.uint8).reshape(2, 3, 2, 3)
+    assert torch.equal(transforms.normalize(x), (x.float() / 255.0 - mean) / std)
 
 
 def test_tf32_is_off_once_the_package_is_imported():

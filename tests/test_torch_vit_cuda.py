@@ -1,17 +1,18 @@
-"""The SSG ViT on a card: its graphed train step against its eager step,
-and the attention route it restricts itself to. Every test needs a CUDA
+"""The SSG ViT on a card: its graphed train step and graphed extract
+against their eager twins, and the attention route it restricts itself to. Every test needs a CUDA
 device and skips without one. This file imports neither JAX nor the JAX
 package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_vit_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
-from ssg_tpu_torch import models, resolve_device
+from ssg_tpu_torch import api, models, resolve_device
 from ssg_tpu_torch.train.schedule import make_optimizer
 from ssg_tpu_torch.train.trainer import make_train_step
 from ssg_tpu_torch.utils import profiling
@@ -75,6 +76,33 @@ def test_graphed_step_equals_eager_step(cuda, monkeypatch):
             assert torch.equal(v, oe.state[q][k]), (name, k)
     for (name, t), u in zip(mg.named_buffers(), me.buffers()):
         assert torch.equal(t, u), name
+
+
+def test_graphed_extract_equals_eager_extract(cuda, monkeypatch):
+    # Two calls over three batches on the same weights: the graphed model
+    # runs its first batch eager and replays the rest (2, then 3), the eager
+    # twin (a forward pre-hook that does nothing) replays none; bit for bit
+    # the same features.
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    base = models.create("vit_base_patch16_s12", **SMALL)
+    base.reset_parameters(torch.Generator().manual_seed(0))
+    meta = np.zeros(8)
+    feed = [(x, meta, meta, np.ones(8, dtype=bool)) for x, _ in _batches(cuda, 3)]
+    runs = []
+    for graphed in (True, False):
+        model = models.create("vit_base_patch16_s12", **SMALL)
+        model.load_state_dict(base.state_dict())
+        model.to(cuda, memory_format=torch.channels_last)
+        if not graphed:
+            model.register_forward_pre_hook(lambda mod, args: None)
+        for _ in range(2):
+            with profiling.record_spans():
+                feats = api.extract_features(model, feed, device=cuda)[0]
+                torch.cuda.synchronize()
+            runs.append((feats, profiling.recorded().counters.get(api.EXTRACT_GRAPH_REPLAYS, 0)))
+    assert [n for _, n in runs] == [2, 3, 0, 0]
+    for got, want in zip(runs[:2], runs[2:]):
+        assert torch.equal(got[0], want[0]), float((got[0] - want[0]).abs().max())
 
 
 def test_attention_takes_the_flash_route_at_211_tokens(cuda):
